@@ -1,0 +1,194 @@
+// Fused separable Lanczos resample, uint8 planar -> uint8 planar, for Hopper (sm_90a).
+//
+// Replaces lanczos_tpu/ops/resample_pallas.py::_fused_kernel_mxu (the TPU kernel of
+// the `precise` main path), linear variants only: fp32 and bf16.  The plan (per
+// row-tile vertical matrices, deduplicated per column-block horizontal matrices,
+// band starts) is built on the host by lanczos_torch/ops/resample_cuda.py; this
+// kernel reads the starts and never recomputes them.
+//
+// One block computes one (column block b, row tile i, plane p) output tile:
+//   1. load the uint8 band x[p, starts_v[i] + k, starts_h[b] + j] (k < kv, j < kh)
+//      into shared memory as float, zero past H and W;
+//   2. vertical pass  midT[j][r] = sum_k band[k][j] * wvT[i][k][r]   (tile x kh)
+//      into shared memory (rounded to bf16 in the bf16 instantiation);
+//   3. horizontal pass out[r][c] = sum_j midT[j][r] * wh[uniq_h[b]][j][c];
+//   4. trunc(clip(., 0, 255)) and a store masked at the ragged bottom/right edges.
+// The TPU grid ran in order and carried a double-buffered band between steps;
+// Hopper blocks run in parallel in no order, so each block loads its own band.
+//
+// What bounds it on the H100: arithmetic.  Both passes are dense products over the
+// per-tile matrices, so at 4K->8K (tile 64, cb 128, kv 37, kh 69) a frame costs
+// about 90 multiply-adds per output pixel, ~18 GFLOP, against ~124 MB of compulsory
+// uint8 traffic: far above the card's fp32 ridge point, so memory is not the limit.
+// This first version keeps the work in plain fp32 FMA on the SIMT cores with an
+// 8x4 register tile per thread (two 16-byte shared loads and one 16-byte L1/L2 load
+// of weights per 32 FMAs); the weights stay in global memory, where all blocks share
+// them through L2.  Tensor cores (wgmma, TMA) or a band-sparse FMA that skips the
+// zeros of the dense matrices are the next steps and are not done here.
+//
+// Layouts (all row-major, contiguous; the wrapper checks them):
+//   x      (nc, H, W) uint8            out    (nc, OH, OW) uint8
+//   wvT    (num_tiles, kv, tile_p) WT  wh     (n_uniq, kh, cb_p) WT
+//   starts_v (num_tiles,) int32        starts_h, uniq_h (n_cb,) int32
+// with tile_p = tile rounded up to 8 and cb_p = cb rounded up to 4, zero padded.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int MR = 8;  // rows of a thread's register tile (the shared-memory operand)
+constexpr int NR = 4;  // columns of a thread's register tile (the global-memory operand)
+
+__device__ __forceinline__ void load4(const float* __restrict__ p, float (&v)[NR]) {
+  const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+  v[0] = t.x;
+  v[1] = t.y;
+  v[2] = t.z;
+  v[3] = t.w;
+}
+
+__device__ __forceinline__ void load4(const __nv_bfloat16* __restrict__ p, float (&v)[NR]) {
+  // four bf16 in 8 bytes, element 0 in the low half of the first word
+  const uint2 t = __ldg(reinterpret_cast<const uint2*>(p));
+  v[0] = __uint_as_float(t.x << 16);
+  v[1] = __uint_as_float(t.x & 0xffff0000u);
+  v[2] = __uint_as_float(t.y << 16);
+  v[3] = __uint_as_float(t.y & 0xffff0000u);
+}
+
+__device__ __forceinline__ float round_mid(float v, const float*) { return v; }
+
+__device__ __forceinline__ float round_mid(float v, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// acc[m][n] = sum_k At[k * lda + m0 + m] * B[k * ldb + n0 + n] over k < K.
+// At lives in shared memory (k-major, 16-byte aligned rows); B in global memory.
+template <typename WT>
+__device__ __forceinline__ void micro_tile(const float* __restrict__ At, int lda,
+                                           const WT* __restrict__ B, int ldb, int K, int m0,
+                                           int n0, float (&acc)[MR][NR]) {
+#pragma unroll
+  for (int m = 0; m < MR; ++m)
+#pragma unroll
+    for (int n = 0; n < NR; ++n) acc[m][n] = 0.f;
+#pragma unroll 4
+  for (int k = 0; k < K; ++k) {
+    const float4 a0 = *reinterpret_cast<const float4*>(At + k * lda + m0);
+    const float4 a1 = *reinterpret_cast<const float4*>(At + k * lda + m0 + 4);
+    const float a[MR] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    float b[NR];
+    load4(B + (size_t)k * ldb + n0, b);
+#pragma unroll
+    for (int m = 0; m < MR; ++m)
+#pragma unroll
+      for (int n = 0; n < NR; ++n) acc[m][n] = fmaf(a[m], b[n], acc[m][n]);
+  }
+}
+
+template <typename WT>
+__global__ void __launch_bounds__(kThreads)
+    fused_resample_kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ out,
+                          const WT* __restrict__ wvT, const WT* __restrict__ wh,
+                          const int* __restrict__ starts_v, const int* __restrict__ starts_h,
+                          const int* __restrict__ uniq_h, int H, int W, int OH, int OW,
+                          int tile, int tile_p, int kv, int cb, int cb_p, int kh, int kh_p) {
+  extern __shared__ float4 smem4[];
+  float* band = reinterpret_cast<float*>(smem4);  // (kv, kh_p)
+  float* midT = band + kv * kh_p;                 // (kh_p, tile_p)
+
+  const int b = blockIdx.x, i = blockIdx.y, p = blockIdx.z;
+  const int r0 = starts_v[i], c0 = starts_h[b];
+  const uint8_t* __restrict__ xp = x + (size_t)p * H * W;
+
+  // 1. band, zero past the image and past kh
+  for (int e = threadIdx.x; e < kv * kh_p; e += kThreads) {
+    const int k = e / kh_p, j = e - k * kh_p;
+    const int r = r0 + k, c = c0 + j;
+    band[e] = (j < kh && r < H && c < W) ? (float)xp[(size_t)r * W + c] : 0.f;
+  }
+  __syncthreads();
+
+  float acc[MR][NR];
+
+  // 2. vertical: midT (kh_p x tile_p) = band^T (kh_p x kv) . wvT[i] (kv x tile_p)
+  const WT* __restrict__ wv_i = wvT + (size_t)i * kv * tile_p;
+  const int nn_v = tile_p / NR;
+  for (int t = threadIdx.x; t < (kh_p / MR) * nn_v; t += kThreads) {
+    const int m0 = (t / nn_v) * MR, n0 = (t % nn_v) * NR;
+    micro_tile(band, kh_p, wv_i, tile_p, kv, m0, n0, acc);
+#pragma unroll
+    for (int m = 0; m < MR; ++m)
+#pragma unroll
+      for (int n = 0; n < NR; ++n) midT[(m0 + m) * tile_p + n0 + n] = round_mid(acc[m][n], wv_i);
+  }
+  __syncthreads();
+
+  // 3./4. horizontal: out tile (tile_p x cb_p) = midT^T (tile_p x kh) . wh[u] (kh x cb_p)
+  const WT* __restrict__ wh_b = wh + (size_t)uniq_h[b] * kh * cb_p;
+  const int rows = min(tile, OH - i * tile), cols = min(cb, OW - b * cb);
+  uint8_t* __restrict__ op = out + ((size_t)p * OH + (size_t)i * tile) * OW + (size_t)b * cb;
+  const int nn_h = cb_p / NR;
+  for (int t = threadIdx.x; t < (tile_p / MR) * nn_h; t += kThreads) {
+    const int m0 = (t / nn_h) * MR, n0 = (t % nn_h) * NR;
+    micro_tile(midT, tile_p, wh_b, cb_p, kh, m0, n0, acc);
+#pragma unroll
+    for (int m = 0; m < MR; ++m) {
+      if (m0 + m >= rows) break;
+#pragma unroll
+      for (int n = 0; n < NR; ++n) {
+        if (n0 + n < cols) {
+          const float v = fminf(fmaxf(acc[m][n], 0.f), 255.f);
+          op[(size_t)(m0 + m) * OW + n0 + n] = (uint8_t)__float2uint_rz(v);
+        }
+      }
+    }
+  }
+}
+
+template <typename WT>
+cudaError_t launch(const uint8_t* x, uint8_t* out, const void* wvT, const void* wh,
+                   const int* starts_v, const int* starts_h, const int* uniq_h, int nc, int H,
+                   int W, int OH, int OW, int tile, int tile_p, int kv, int cb, int cb_p, int kh,
+                   int kh_p, int n_cb, int num_tiles, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * ((size_t)kv * kh_p + (size_t)kh_p * tile_p);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fused_resample_kernel<WT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  const dim3 grid(n_cb, num_tiles, nc);
+  fused_resample_kernel<WT><<<grid, kThreads, smem, stream>>>(
+      x, out, static_cast<const WT*>(wvT), static_cast<const WT*>(wh), starts_v, starts_h,
+      uniq_h, H, W, OH, OW, tile, tile_p, kv, cb, cb_p, kh, kh_p);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int lanczos_fused_resample(const void* x, void* out, const void* wvT, const void* wh,
+                                      const void* starts_v, const void* starts_h,
+                                      const void* uniq_h, int nc, int H, int W, int OH, int OW,
+                                      int tile, int tile_p, int kv, int cb, int cb_p, int kh,
+                                      int kh_p, int n_cb, int num_tiles, int bf16,
+                                      void* stream) {
+  auto* xs = static_cast<const uint8_t*>(x);
+  auto* os = static_cast<uint8_t*>(out);
+  auto* sv = static_cast<const int*>(starts_v);
+  auto* sh = static_cast<const int*>(starts_h);
+  auto* uh = static_cast<const int*>(uniq_h);
+  auto st = static_cast<cudaStream_t>(stream);
+  const cudaError_t e =
+      bf16 ? launch<__nv_bfloat16>(xs, os, wvT, wh, sv, sh, uh, nc, H, W, OH, OW, tile, tile_p,
+                                   kv, cb, cb_p, kh, kh_p, n_cb, num_tiles, st)
+           : launch<float>(xs, os, wvT, wh, sv, sh, uh, nc, H, W, OH, OW, tile, tile_p, kv, cb,
+                           cb_p, kh, kh_p, n_cb, num_tiles, st);
+  return (int)e;
+}
+
+extern "C" const char* lanczos_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
