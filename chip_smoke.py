@@ -8,18 +8,29 @@ not 0:
 1. environment: a CUDA device is required (no CPU fallback); prints the
    card's name and power limit from ``nvidia-smi`` and the versions;
 2. build: compiles ``lanczos_torch/csrc`` with ``nvcc`` and loads it;
-3. the fused kernel against its plain PyTorch version on the card, at
-   small shapes (ragged tiles and blocks, a rational scale, center
-   alignment, a batch, a shared-memory-heavy downscale), fp32 and bf16;
+3. each kernel against its plain PyTorch version on the card, at small
+   shapes: the fused kernel linear (ragged tiles and blocks, a rational
+   scale, center alignment, a batch, a shared-memory-heavy downscale),
+   with dering (clamp, reflect and drop edges, rational, width first),
+   with the quantized intermediate and with both, fp32 and bf16; kernel 2
+   (v2) at 2/1, 3/1, center-aligned and reflect, dering on and off;
 4. the main path: ``lanczos_torch.upscale(img, scale=(2, 1),
    profile="precise", a=3)`` on a seeded 2160×3840×3 uint8 frame in fp32
    and bf16, with the kernel's launch counts, held against a float64
    numpy separable gather and against the plain version;
-5. times of the kernel and the plain version at 4K→8K (CUDA events).
+5. times of the kernel and the plain version at 4K→8K (CUDA events);
+6. the dering path at full width, on the same frame: ``upscale(...,
+   dering=True)`` in fp32 and bf16, ``intermediate_quantize=True`` (and
+   with dering), ``order="width_first", dering=True``, and kernel 2 through
+   ``FusedOps(cfg, "cuda", variant="v2")``; each run with its own launch
+   counts, held against its plain version and against float64 gathers
+   with the clamp, the quantize and the pass order;
+7. times of every new kernel and its plain version at 4K→8K.
 
-Limits, for every comparison: fp32 ≤ 1 LSB on ≤ 1% of pixels; bf16 ≤ 3 LSB
-on ≤ 50% of pixels.  The last lines are one JSON object of the kernels and
-one of the device.
+Limits: fp32 ≤ 1 LSB on ≤ 1% of pixels (the quantized intermediate ≤ 2
+LSB: one flipped intermediate value spreads over the taps); bf16 ≤ 3 LSB
+on ≤ 50% of pixels; kernel 2 and its plain version identical bytes.  The
+last lines are one JSON object of the kernels and one of the device.
 """
 
 from __future__ import annotations
@@ -28,10 +39,12 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-LIMITS = {"fp32": (1, 0.01), "bf16": (3, 0.50)}
+LIMITS = {"fp32": (1, 0.01), "bf16": (3, 0.50), "quant": (2, 0.01), "exact": (0, 0.0)}
+FRAME = (2160, 3840)  # the main path's input, 4K; output 2x each way
 FP32_PEAK_TFLOPS = 67.0  # H100 SXM, SIMT fp32, NVIDIA's data sheet at 700 W
 
 
@@ -55,21 +68,82 @@ def compare(name: str, got, want, precision: str) -> tuple[int, float]:
 
 
 def gather_f64(img: np.ndarray, cfg) -> np.ndarray:
-    """Float64 separable gather, height first, from the port's
-    banded_weights: the (H, W, C) uint8 reference of a precise config."""
+    """Float64 separable gather from the port's banded_weights: the
+    (H, W, C) uint8 reference of a precise config, in its pass order, with
+    its dering clamp (each pass to its two central taps) and its quantized
+    intermediate."""
     from lanczos_torch.core.weights import banded_weights
 
     (ih, iw), (oh, ow) = cfg.in_shape, cfg.out_shape
     kw = dict(a=cfg.a, filter_name=cfg.filter, edge_mode=cfg.edge_mode,
               normalize=cfg.normalize, align=cfg.align.value)
     op_v, op_h = banded_weights(ih, oh, **kw), banded_weights(iw, ow, **kw)
-    mid = np.zeros((oh, iw, img.shape[2]), np.float64)
-    for j in range(op_v.taps):
-        mid += op_v.weights[:, j, None, None] * img[op_v.idx[:, j]]
-    out = np.zeros((oh, ow, img.shape[2]), np.float64)
-    for j in range(op_h.taps):
-        out += op_h.weights[None, :, j, None] * mid[:, op_h.idx[:, j]]
+
+    def apply(x, op, axis):
+        shape = [1, 1, 1]
+        shape[axis] = op.out_size
+        acc = None
+        for j in range(op.taps):
+            term = op.weights[:, j].reshape(shape) * np.take(x, op.idx[:, j], axis)
+            acc = term if acc is None else np.add(acc, term, out=acc)
+        if cfg.dering:
+            c0 = np.take(x, op.idx[:, op.a - 1], axis)
+            c1 = np.take(x, op.idx[:, op.a], axis)
+            acc = np.clip(acc, np.minimum(c0, c1), np.maximum(c0, c1))
+        return acc
+
+    first, second = ((op_v, 0), (op_h, 1))
+    if cfg.order.value == "width_first":
+        first, second = second, first
+    mid = apply(img.astype(np.float64), *first)
+    if cfg.intermediate_quantize:
+        # Exactly integral intermediates (at 2/1 the even rows copy the
+        # input) come out of float64 a few ulps to either side, because
+        # sin(pi*k) leaves the zero taps at ~1e-17; truncation would drop
+        # those below by a whole level.  Snap them to the integer first.
+        near = np.round(mid)
+        mid = np.where(np.abs(mid - near) < 1e-9, near, mid)
+        mid = np.trunc(np.clip(mid, 0.0, 255.0))
+    out = apply(mid, *second)
     return np.trunc(np.clip(out, 0.0, 255.0)).astype(np.uint8)
+
+
+def plain_version(x, ops):
+    """The plain PyTorch version of whatever kernel ``ops`` runs, on the
+    planar (NC, H, W) uint8 ``x``, on ``x``'s device."""
+    from lanczos_torch.ops import resample_shift_cuda as rs
+    from lanczos_torch.ops.resample_cuda import fused_resample_reference
+
+    if ops.tr_ops is not None:
+        return plain_version(x.transpose(-1, -2).contiguous(), ops.tr_ops).transpose(-1, -2)
+    cfg = ops.cfg
+    if ops.shift is not None:
+        return rs.shift_resample_reference(x, ops.shift.plan, cfg.out_shape, cfg.dering)
+    return fused_resample_reference(x, ops.plan, cfg.precision, cfg.out_shape,
+                                    cfg.dering, cfg.intermediate_quantize)
+
+
+def limits(cfg, variant: str) -> str:
+    """Which LIMITS a run of ``cfg`` on ``variant`` is held to."""
+    if variant == "v2":
+        return "fp32"  # v2 computes in fp32 whatever the precision
+    if cfg.precision.value == "bf16":
+        return "bf16"
+    return "quant" if cfg.intermediate_quantize else "fp32"
+
+
+def reset_counts() -> None:
+    from lanczos_torch.ops import resample_cuda as rc, resample_shift_cuda as rs
+
+    for counts in (rc.launches, rs.launches):
+        for k in counts:
+            counts[k] = 0
+
+
+def read_counts() -> dict:
+    from lanczos_torch.ops import resample_cuda as rc, resample_shift_cuda as rs
+
+    return {k: n for k, n in (rc.launches | rs.launches).items() if n}
 
 
 def dense_flops(plan, nc: int) -> float:
@@ -155,15 +229,63 @@ def main() -> None:
             torch.cuda.synchronize()
             compare(f"{precision} {name} (smem {ops.plan.smem_bytes()} B)",
                     got, want, precision)
+    nonlinear = [  # name, (h, w), scale, batch, overrides
+        ("dering 2/1 clamp 60x80", (60, 80), (2, 1), 1, {"dering": True}),
+        ("dering 3/1 reflect 60x80", (60, 80), (3, 1), 1,
+         {"dering": True, "edge_mode": "reflect"}),
+        ("dering 3/2 rational 60x80", (60, 80), (3, 2), 1, {"dering": True}),
+        ("drop-edge dering 3/2 48x64", (48, 64), (3, 2), 1,
+         {"dering": True, "edge_mode": "drop", "normalize": False}),
+        ("drop-edge dering 3/2 normalized 48x64", (48, 64), (3, 2), 1,
+         {"dering": True, "edge_mode": "drop"}),
+        ("quantize 2/1 48x64", (48, 64), (2, 1), 1, {"intermediate_quantize": True}),
+        ("dering+quantize 2/1 48x64", (48, 64), (2, 1), 1,
+         {"dering": True, "intermediate_quantize": True}),
+        ("width-first dering 3/2 40x56", (40, 56), (3, 2), 1,
+         {"dering": True, "order": "width_first"}),
+        ("dering ragged tile+block 100x300", (100, 300), (2, 1), 1, {"dering": True}),
+        ("dering batch-2 planar 64x96", (64, 96), (2, 1), 2, {"dering": True}),
+    ]
+    for precision in ("fp32", "bf16"):
+        for name, (h, w), scale, batch, kw in nonlinear:
+            cfg = lanczos_torch.ResampleConfig.from_profile(
+                "precise", (h, w), scale=scale, a=3, precision=precision, **kw
+            )
+            ops = rc.FusedOps(cfg, "cuda")
+            x = torch.from_numpy(
+                rng.integers(0, 256, (batch * 3, h, w), dtype=np.uint8)
+            ).cuda()
+            got = rc.upscale_planar(x, ops)
+            want = plain_version(x, ops)
+            torch.cuda.synchronize()
+            compare(f"{ops.kernel} {name}", got, want, limits(cfg, ops.variant))
+    v2_cases = [  # name, (h, w), scale, overrides
+        ("2/1 24x40", (24, 40), (2, 1), {}),
+        ("3/1 24x40", (24, 40), (3, 1), {}),
+        ("2/1 align=center 24x40", (24, 40), (2, 1), {"align": "center"}),
+        ("2/1 reflect 24x40", (24, 40), (2, 1), {"edge_mode": "reflect"}),
+    ]
+    for dering in (True, False):
+        for name, (h, w), scale, kw in v2_cases:
+            cfg = lanczos_torch.ResampleConfig.from_profile(
+                "precise", (h, w), scale=scale, a=3, dering=dering, **kw
+            )
+            ops = rc.FusedOps(cfg, "cuda", variant="v2")
+            x = torch.from_numpy(rng.integers(0, 256, (3, h, w), dtype=np.uint8)).cuda()
+            got = rc.upscale_planar(x, ops)
+            want = plain_version(x, ops)
+            torch.cuda.synchronize()
+            compare(f"{ops.kernel} {name}{' dering' if dering else ''}", got, want,
+                    "exact")
 
     # ---- 4. main path
     print("== 4. main path: upscale 2160x3840x3 -> 4320x7680x3, a=3, precise",
           flush=True)
-    img = np.random.default_rng(0).integers(0, 256, (2160, 3840, 3), dtype=np.uint8)
+    img = np.random.default_rng(0).integers(0, 256, FRAME + (3,), dtype=np.uint8)
+    out_shape = (2 * FRAME[0], 2 * FRAME[1], 3)
     x = torch.from_numpy(img).cuda()
     torch.cuda.synchronize()
-    for k in rc.launches:
-        rc.launches[k] = 0
+    reset_counts()
     outs = {
         "fp32": lanczos_torch.upscale(x, scale=(2, 1), profile="precise", a=3),
         "bf16": lanczos_torch.upscale(
@@ -171,19 +293,19 @@ def main() -> None:
         ),
     }
     torch.cuda.synchronize()
-    counts = dict(rc.launches)
+    counts = read_counts()
     print(f"  launches during the main path: {counts}", flush=True)
-    for k, n in counts.items():
-        if n < 1:
+    for k in ("fused_resample_fp32", "fused_resample_bf16"):
+        if counts.get(k, 0) < 1:
             raise AssertionError(f"kernel {k} was not launched by the main path")
     cfgs = {
         p: lanczos_torch.ResampleConfig.from_profile(
-            "precise", (2160, 3840), scale=(2, 1), a=3, precision=p
+            "precise", FRAME, scale=(2, 1), a=3, precision=p
         )
         for p in outs
     }
     for p, y in outs.items():
-        if tuple(y.shape) != (4320, 7680, 3) or y.dtype != torch.uint8 or not y.is_cuda:
+        if tuple(y.shape) != out_shape or y.dtype != torch.uint8 or not y.is_cuda:
             raise AssertionError(f"{p}: got {tuple(y.shape)} {y.dtype} {y.device}")
     t0 = time.perf_counter()
     ref64 = gather_f64(img, cfgs["fp32"])
@@ -229,6 +351,108 @@ def main() -> None:
             "replaces": "lanczos_tpu/ops/resample_pallas.py:849",
             "launches": counts[ops.kernel],
             "max_abs_err": errs[p],
+            "ms": kernel_ms,
+            "plain_ms": plain_ms,
+        })
+
+    # ---- 6. the dering path at full width
+    print("== 6. dering and quantized-intermediate paths at 4K->8K", flush=True)
+    from lanczos_torch.ops import resample_shift_cuda as rs
+
+    def cfg_of(**kw):
+        return lanczos_torch.ResampleConfig.from_profile(
+            "precise", FRAME, scale=(2, 1), a=3, **kw
+        )
+
+    f64 = {  # float64 references, computed on host threads while the card runs
+        "dering": cfg_of(dering=True),
+        "quantize": cfg_of(intermediate_quantize=True),
+        "width-first dering": cfg_of(dering=True, order="width_first"),
+    }
+    t0 = time.perf_counter()
+    pool = ThreadPoolExecutor(len(f64))
+    f64 = {k: (c, pool.submit(gather_f64, img, c)) for k, c in f64.items()}
+    paths = [  # name, overrides, float64 reference, via (upscale or v2)
+        ("fp32 dering", dict(dering=True), "dering", "upscale"),
+        ("bf16 dering", dict(dering=True, precision="bf16"), "dering", "upscale"),
+        ("fp32 quantize", dict(intermediate_quantize=True), "quantize", "upscale"),
+        ("bf16 quantize", dict(intermediate_quantize=True, precision="bf16"),
+         "quantize", "upscale"),
+        ("fp32 dering+quantize", dict(dering=True, intermediate_quantize=True), None,
+         "upscale"),
+        ("bf16 dering+quantize",
+         dict(dering=True, intermediate_quantize=True, precision="bf16"), None, "upscale"),
+        ("fp32 width-first dering", dict(dering=True, order="width_first"),
+         "width-first dering", "upscale"),
+        ("v2 dering", dict(dering=True), "dering", "v2"),
+    ]
+    runs = {}
+    for name, kw, ref, via in paths:
+        cfg = cfg_of(**kw)
+        ops = rc.FusedOps(cfg, "cuda", variant="v2" if via == "v2" else "auto")
+        torch.cuda.synchronize()
+        reset_counts()
+        if via == "v2":
+            y = rc.resample_2d_cuda(x, ops)
+        else:
+            y = lanczos_torch.upscale(x, scale=(2, 1), profile="precise", a=3, **kw)
+        torch.cuda.synchronize()
+        n = read_counts()
+        print(f"  {name}: launches {n}", flush=True)
+        if n.get(ops.kernel, 0) < 1:
+            raise AssertionError(f"{name}: kernel {ops.kernel} was not launched")
+        if tuple(y.shape) != out_shape or y.dtype != torch.uint8 or not y.is_cuda:
+            raise AssertionError(f"{name}: got {tuple(y.shape)} {y.dtype} {y.device}")
+        want = plain_version(planar, ops).permute(1, 2, 0)
+        lim = "exact" if via == "v2" else limits(cfg, ops.variant)
+        err, _ = compare(f"{name} ({ops.kernel}) vs plain version", y, want, lim)
+        runs[name] = (cfg, ops, y.cpu().numpy(), ref, n[ops.kernel], err)
+        del y, want
+    for name, (cfg, ops, y, ref, _, _) in runs.items():
+        if ref is not None:
+            compare(f"{name} vs float64 gather", y, f64[ref][1].result(),
+                    limits(cfg, ops.variant))
+    print(f"  float64 numpy gather references (3, in parallel): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    pool.shutdown()
+    del f64
+    torch.cuda.empty_cache()
+
+    # ---- 7. times of the new kernels
+    print("== 7. new kernels' times at 4K->8K (3 planes, CUDA events, mean of 20 "
+          "after 3 warm-up; order plain, kernel, kernel, plain)", flush=True)
+    for name, (cfg, ops, _, _, launched, err) in runs.items():
+        if name == "fp32 width-first dering":
+            # the fp32 dering kernel again, with a transposing copy each way
+            def kernel_fn():
+                return rc.upscale_planar(planar, ops)
+        elif ops.shift is not None:
+            def kernel_fn():
+                return rs.shift_call(ops.shift, planar)
+        else:
+            def kernel_fn():
+                return rc.fused_call(ops, planar)
+
+        def plain_fn():
+            return plain_version(planar, ops)
+
+        t = [cuda_time_ms(f) for f in (plain_fn, kernel_fn, kernel_fn, plain_fn)]
+        plain_ms, kernel_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+        print(f"  {name} ({ops.kernel}): kernel {t[1]:.4f} / {t[2]:.4f} ms/frame, "
+              f"plain version {t[0]:.4f} / {t[3]:.4f} ms/frame [{smi}]", flush=True)
+        if name == "fp32 width-first dering":
+            continue  # a path, not a kernel of its own
+        kernels.append({
+            "name": ops.kernel,
+            "route": "cuda",
+            "source": "lanczos_torch/csrc/" + (
+                "shift_resample.cu" if ops.shift is not None else "fused_resample.cu"
+            ),
+            "replaces": "lanczos_tpu/ops/resample_pallas.py:" + (
+                "779" if ops.shift is not None else "849"
+            ),
+            "launches": launched,
+            "max_abs_err": err,
             "ms": kernel_ms,
             "plain_ms": plain_ms,
         })

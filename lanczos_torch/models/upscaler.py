@@ -1,10 +1,13 @@
 """High-level upscaler (the port of ``lanczos_tpu/models/upscaler.py``).
 
-An :class:`Upscaler` owns one static :class:`ResampleConfig`, its fused
-plan and the plan's weights on each device it has run on.  The port has
-one backend so far, the hand-written CUDA kernel of
-``ops/resample_cuda.py`` (``"cuda"``, what ``"auto"`` picks): every linear
-uint8 config with a fused plan.  Every other config raises
+An :class:`Upscaler` owns one static :class:`ResampleConfig`, its plan
+and the plan's tables on each device it has run on.  The port has one
+backend so far, its hand-written CUDA kernels (``"cuda"``, what ``"auto"``
+picks), routed as the JAX package's ``auto`` routes its Pallas kernels
+(``ops/resample_cuda.FusedOps``): the fused kernel for every uint8
+``precise``-family config with a fused plan, linear, with the dering
+clamp or with the quantized intermediate, either pass order; kernel 2 for
+integer-scale dering without one.  Every other config raises
 ``NotImplementedError`` naming the slice of the port that will bring it.
 
 A torch tensor runs on its own device: on CUDA through the kernel, on the
@@ -46,8 +49,8 @@ class Upscaler:
     def __init__(self, cfg: ResampleConfig, backend: str = "auto", device="cuda"):
         if backend not in ("auto", "cuda"):
             raise NotImplementedError(
-                f"backend {backend!r} is not ported yet: the port has the "
-                "fused CUDA kernel ('cuda'); the gather, shift and block "
+                f"backend {backend!r} is not ported yet: the port has its "
+                "CUDA kernels ('cuda'); the gather, shift and block "
                 "paths are ROADMAP queue 1, items 3 and 5"
             )
         self.cfg = cfg
@@ -55,7 +58,7 @@ class Upscaler:
         self.device = torch.device(device)
         # raises NotImplementedError for configs the slice does not cover
         cpu = FusedOps(cfg, "cpu")
-        self.plan = cpu.plan
+        self.plan = cpu.plan  # the fused plan; None where kernel 2 runs
         self._ops = {torch.device("cpu"): cpu}
         self._lock = threading.Lock()
 
@@ -104,13 +107,11 @@ class Upscaler:
 def _device_table_bytes(model: Upscaler) -> int:
     """Bytes of the weight tables an Upscaler holds: the host plan's
     arrays and every device copy of them."""
-    plan = model.plan
-    total = sum(
-        a.nbytes for a in (plan.wv, plan.wh, plan.starts_v, plan.starts_h, plan.uniq_h)
-    )
+    cpu = model._ops[torch.device("cpu")]
+    plan = model.plan if model.plan is not None else cpu.shift.plan
+    total = sum(a.nbytes for a in vars(plan).values() if isinstance(a, np.ndarray))
     for ops in model._ops.values():
-        for t in (ops.tensors or {}).values():
-            total += t.numel() * t.element_size()
+        total += sum(t.numel() * t.element_size() for t in ops.table_tensors())
     return total
 
 

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels at first use.
 
-``nvcc`` compiles every ``lanczos_torch/csrc/*.cu`` into one shared library
-with a plain C interface (no PyTorch headers, so the build takes seconds),
-under ``lanczos_torch/_build/``, named by a hash of the sources and flags;
+``nvcc`` compiles every ``lanczos_torch/csrc/*.cu``, all in parallel, and
+links them into one shared library with a plain C interface (no PyTorch
+headers, so the build takes seconds), under ``lanczos_torch/_build/``,
+named by a hash of the sources and flags;
 ``ctypes`` loads it.  Nothing is prebuilt or downloaded.  Without ``nvcc``
 the build raises: there is no fallback to the plain PyTorch versions.
 """
@@ -23,8 +24,10 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
+# Shared memory one block may use on the target (sm_90a: an H100)
+SMEM_LIMIT = 227 * 1024
 
 
 def _nvcc() -> str:
@@ -54,30 +57,43 @@ def library_path() -> Path:
     return BUILD_DIR / f"liblanczos_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(procs: list) -> None:
+    """Wait for every (cmd, Popen); raise with the first failure's output."""
+    failed = None
+    for cmd, proc in procs:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0 and failed is None:
+            failed = f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{stdout}{stderr}"
+    if failed:
+        raise RuntimeError(failed)
+
+
 def build() -> Path:
-    """Compile the kernels unless a library for these sources exists."""
+    """Compile the kernels unless a library for these sources exists: one
+    ``nvcc -c`` per source, all started together, then one link."""
     out = library_path()
     if out.exists():
         return out
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    units = [str(s) for s in _sources() if s.suffix == ".cu"]
-    # compile to a temporary name and rename: a concurrent build never
-    # loads a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *units]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
-                f"{res.stdout}{res.stderr}"
-            )
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    units = [s for s in _sources() if s.suffix == ".cu"]
+    # build in a private directory and rename the library into place: a
+    # concurrent build never loads a half-written one
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, f"{s.stem}.o") for s in units]
+        procs = []
+        for src, obj in zip(units, objs):
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
+            )))
+        _run(procs)
+        lib = os.path.join(tmp, out.name)
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]
+        _run([(cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
+        ))])
+        os.replace(lib, out)
     return out
 
 
@@ -86,8 +102,10 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed (once per process)."""
     lib = ctypes.CDLL(str(build()))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.lanczos_fused_resample.argtypes = [ptr] * 7 + [i32] * 15 + [ptr]
+    lib.lanczos_fused_resample.argtypes = [ptr] * 9 + [i32] * 17 + [ptr]
     lib.lanczos_fused_resample.restype = i32
+    lib.lanczos_shift_resample.argtypes = [ptr] * 8 + [i32] * 11 + [ptr]
+    lib.lanczos_shift_resample.restype = i32
     lib.lanczos_cuda_error_string.argtypes = [i32]
     lib.lanczos_cuda_error_string.restype = ctypes.c_char_p
     return lib

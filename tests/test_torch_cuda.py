@@ -1,12 +1,15 @@
-"""The CUDA kernel against its plain PyTorch version, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card.
 
 Marked ``cuda``; each test skips when no CUDA device is present (decided
-inside the fixture, never at import).  Run on a machine with a card:
+inside the fixture, never at import).  Run on a machine with a card (the
+JAX package's ``tests/conftest.py`` needs JAX, hence ``--noconftest``):
 
-    python -m pytest tests/test_torch_cuda.py -q -m cuda
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-Limits: fp32 ≤ 1 LSB on ≤ 1% of pixels, bf16 ≤ 3 LSB on ≤ 50% (the same
-plan and rounding points: only the order of the fp32 sums differs).
+Limits: the fused kernel (every instantiation) fp32 ≤ 1 LSB on ≤ 1% of
+pixels, bf16 ≤ 3 LSB on ≤ 50% (the same plan and rounding points: only
+the order of the fp32 sums differs); kernel 2 identical bytes (the same
+multiply-then-add sequence in the same order).
 """
 
 import numpy as np
@@ -16,6 +19,7 @@ torch = pytest.importorskip("torch")
 
 import lanczos_torch  # noqa: E402
 from lanczos_torch.ops import resample_cuda as rc  # noqa: E402
+from lanczos_torch.ops import resample_shift_cuda as rs  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 LIMITS = {"fp32": (1, 0.01), "bf16": (3, 0.50)}
@@ -82,3 +86,93 @@ def test_wrapper_refuses_bad_inputs(cuda):
         rc.fused_call(ops, x.to(torch.int8))
     with pytest.raises(ValueError, match="weights on"):
         rc.fused_call(ops, x.cpu())
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("shape,scale,kw,planes", [
+    ((60, 80), (2, 1), {"dering": True}, 3),
+    ((60, 80), (3, 1), {"dering": True, "edge_mode": "reflect"}, 3),
+    ((60, 80), (3, 2), {"dering": True}, 3),
+    ((48, 64), (3, 2), {"dering": True, "edge_mode": "drop", "normalize": False}, 3),
+    ((48, 64), (3, 2), {"dering": True, "edge_mode": "drop"}, 3),
+    ((48, 64), (2, 1), {"intermediate_quantize": True}, 3),
+    ((48, 64), (2, 1), {"dering": True, "intermediate_quantize": True}, 3),
+    ((100, 300), (2, 1), {"dering": True}, 6),  # ragged tile and block, a batch of 2
+])
+def test_nonlinear_kernel_matches_plain_version(cuda, shape, scale, kw, planes, precision):
+    cfg = lanczos_torch.ResampleConfig.from_profile(
+        "precise", shape, scale=scale, a=3, precision=precision, **kw
+    )
+    ops = rc.FusedOps(cfg, cuda)
+    assert ops.variant == "mxu" and ops.kernel.startswith(f"fused_resample_{precision}_")
+    x = np.random.default_rng(2).integers(0, 256, (planes,) + shape, dtype=np.uint8)
+    x = torch.from_numpy(x).to(cuda)
+    before = rc.launches[ops.kernel]
+    got = rc.fused_call(ops, x)
+    torch.cuda.synchronize()
+    assert rc.launches[ops.kernel] == before + 1
+    want = rc.fused_resample_reference(
+        x, ops.plan, precision, cfg.out_shape, cfg.dering, cfg.intermediate_quantize
+    )
+    _within(got, want, precision)
+
+
+def test_width_first_dering_runs_the_transposed_kernel(cuda):
+    cfg = lanczos_torch.ResampleConfig.from_profile(
+        "precise", (40, 56), scale=(3, 2), a=3, dering=True, order="width_first"
+    )
+    ops = rc.FusedOps(cfg, cuda)
+    assert ops.tr_ops is not None and ops.kernel == "fused_resample_fp32_dering"
+    x = torch.from_numpy(
+        np.random.default_rng(3).integers(0, 256, (2, 3, 40, 56), dtype=np.uint8)
+    ).to(cuda)
+    before = rc.launches[ops.kernel]
+    got = rc.upscale_planar(x, ops)
+    torch.cuda.synchronize()
+    assert rc.launches[ops.kernel] == before + 1
+    assert got.shape == (2, 3, 60, 84)
+    want = rc.upscale_planar(x.cpu(), rc.FusedOps(cfg, "cpu"))
+    _within(got.cpu(), want, "fp32")
+
+
+@pytest.mark.parametrize("dering", [True, False])
+@pytest.mark.parametrize("shape,scale,kw", [
+    ((24, 40), (2, 1), {}),
+    ((24, 40), (3, 1), {}),
+    ((24, 40), (2, 1), {"align": "center"}),
+    ((24, 40), (2, 1), {"edge_mode": "reflect"}),
+    ((37, 150), (4, 1), {"align": "center", "edge_mode": "reflect"}),  # ragged tiles
+    ((20, 30), (16, 1), {}),  # the most phases v2 takes
+])
+def test_shift_kernel_equals_plain_version(cuda, shape, scale, kw, dering):
+    cfg = lanczos_torch.ResampleConfig.from_profile(
+        "precise", shape, scale=scale, a=3, dering=dering, **kw
+    )
+    ops = rc.FusedOps(cfg, cuda, variant="v2")
+    assert ops.kernel == "shift_resample"
+    x = np.random.default_rng(4).integers(0, 256, (6,) + shape, dtype=np.uint8)
+    x = torch.from_numpy(x).to(cuda)
+    before = rs.launches["shift_resample"]
+    got = rc.upscale_planar(x, ops)
+    torch.cuda.synchronize()
+    assert rs.launches["shift_resample"] == before + 1
+    want = rs.shift_resample_reference(x, ops.shift.plan, cfg.out_shape, dering)
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), rs.shift_resample_reference(x.cpu(), ops.shift.plan,
+                                                               cfg.out_shape, dering))
+
+
+def test_upscale_dering_runs_on_the_kernel(cuda):
+    img = torch.from_numpy(
+        np.random.default_rng(5).integers(0, 256, (48, 80, 3), dtype=np.uint8)
+    ).to(cuda)
+    for kw, kernel in [
+        ({"dering": True}, "fused_resample_fp32_dering"),
+        ({"intermediate_quantize": True, "precision": "bf16"}, "fused_resample_bf16_quant"),
+    ]:
+        before = rc.launches[kernel]
+        y = lanczos_torch.upscale(img, scale=(2, 1), **kw)
+        assert y.is_cuda and y.shape == (96, 160, 3)
+        assert rc.launches[kernel] == before + 1
+        want = lanczos_torch.upscale(img.cpu(), scale=(2, 1), **kw)
+        _within(y.cpu(), want, kw.get("precision", "fp32"))

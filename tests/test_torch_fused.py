@@ -119,11 +119,30 @@ def test_plan_from_reference_carries_the_tpu_matrices():
     np.testing.assert_array_equal(plan.wh, mx.wh)
     assert list(plan.starts_v) == list(mx.starts_v)
     assert list(plan.uniq_h) == list(mx.uniq_h)
+    assert plan.center_v is None and plan.center_h is None
+    # a dering plan: the one-hot bound rows and columns become the offsets
     dering = TpuConfig.from_profile("precise", (40, 200), scale=(2, 1), dering=True)
-    with pytest.raises(NotImplementedError, match="dering"):
-        rc.plan_from_reference(
-            vars(PallasOps(dering, interpret=True, variant="mxu").mxu)
-        )
+    dx = PallasOps(dering, interpret=True, variant="mxu", tile_h=16).mxu
+    dplan = rc.plan_from_reference(vars(dx))
+    t, cb = dx.tile_out, dx.cb
+    np.testing.assert_array_equal(dplan.wv, dx.wv[:, :t])
+    np.testing.assert_array_equal(dplan.wh, dx.wh[:, :, :cb])
+    s = 3
+    op_v = banded_weights(40, 80, a=3)
+    for i in range(dx.num_tiles):
+        lo, hi = i * t, min((i + 1) * t, 80)
+        want = op_v.idx[lo:hi, s - 1 : s + 1].T - dx.starts_v[i]
+        np.testing.assert_array_equal(dplan.center_v[i, :, : hi - lo], want)
+        assert dx.wv[i, t + np.arange(hi - lo), want[0]].all()
+    op_h = banded_weights(200, 400, a=3)
+    for b in range(dx.n_cb):
+        lo, hi = b * cb, min((b + 1) * cb, 400)
+        want = op_h.idx[lo:hi, s - 1 : s + 1].T - dx.starts_h[b]
+        np.testing.assert_array_equal(dplan.center_h[dx.uniq_h[b], :, : hi - lo], want)
+    bad = dict(vars(dx), wv=dx.wv.copy())
+    bad["wv"][0, t, 0] = 0.5  # not one-hot
+    with pytest.raises(ValueError, match="one-hot"):
+        rc.plan_from_reference(bad)
 
 
 def test_main_path_plan_geometry():
@@ -162,11 +181,14 @@ def test_plan_bands_cover_every_tap(shape, scale, kw):
     assert not rh[iw:].any()
 
 
-def _emulate_kernel(x, lay, oh, ow, bf16):
+def _emulate_kernel(x, lay, oh, ow, bf16, dering=False, quant=False):
     """The CUDA kernel's loops in numpy, on its host layout: per (block,
     tile, plane), a masked band of kh_p zero-padded columns, the vertical
-    product against wvT[i] into midT (kh_p × tile_p), then the horizontal
-    product against wh[uniq_h[b]] and a masked trunc-clip store."""
+    product against wvT[i] into midT (kh_p × tile_p), with dering clamped
+    to the band rows ``cv[i]`` names, with ``quant`` trunc-clipped, in bf16
+    rounded; then the horizontal product against wh[uniq_h[b]], with
+    dering clamped to the midT columns ``ch[uniq_h[b]]`` names, and a
+    masked trunc-clip store."""
     nc, h, w = x.shape
     out = np.full((nc, oh, ow), 7, np.uint8)  # stores must cover every pixel
     tile, tile_p, kv = lay["tile"], lay["tile_p"], lay["kv"]
@@ -174,6 +196,13 @@ def _emulate_kernel(x, lay, oh, ow, bf16):
     assert tile_p % 8 == 0 and kh_p % 8 == 0 and cb_p % 4 == 0
     assert lay["wvT"].shape == (lay["num_tiles"], kv, tile_p)
     assert lay["wh"].shape[1:] == (kh, cb_p)
+    if dering:
+        assert lay["cv"].shape == (lay["num_tiles"], 2, tile_p)
+        assert lay["ch"].shape == (lay["wh"].shape[0], 2, cb_p)
+
+    def clamp(v, a, b):
+        return np.minimum(np.maximum(v, np.minimum(a, b)), np.maximum(a, b))
+
     for p in range(nc):
         for i in range(lay["num_tiles"]):
             for b in range(lay["n_cb"]):
@@ -184,9 +213,18 @@ def _emulate_kernel(x, lay, oh, ow, bf16):
                 ok = (np.arange(kh_p)[None, :] < kh) & (rr < h) & (cc < w)
                 band[ok] = x[p][np.minimum(rr, h - 1), np.minimum(cc, w - 1)][ok]
                 midT = band.T @ lay["wvT"][i]  # (kh_p, tile_p)
+                if dering:
+                    cv = lay["cv"][i]
+                    midT = clamp(midT, band[cv[0]].T, band[cv[1]].T)
+                if quant:
+                    midT = np.trunc(np.clip(midT, 0, 255))
                 if bf16:
                     midT = torch.from_numpy(midT).bfloat16().float().numpy()
-                acc = midT[:kh].T @ lay["wh"][lay["uniq_h"][b]]  # (tile_p, cb_p)
+                u = lay["uniq_h"][b]
+                acc = midT[:kh].T @ lay["wh"][u]  # (tile_p, cb_p)
+                if dering:
+                    ch = lay["ch"][u]
+                    acc = clamp(acc, midT[ch[0]].T, midT[ch[1]].T)
                 rows = min(tile, oh - i * tile)
                 cols = min(cb, ow - b * cb)
                 q = np.trunc(np.clip(acc[:rows, :cols], 0, 255)).astype(np.uint8)
@@ -222,6 +260,43 @@ def test_kernel_layout_reenacted(shape, scale, kw, tiles, precision):
     d = np.abs(got.astype(np.int32) - want.numpy().astype(np.int32))
     lim, frac_lim = LIMITS["fp32"]  # same rounding points: only sum order differs
     assert d.max() <= lim and (d > 0).mean() <= frac_lim
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("shape,scale,kw,tiles", [
+    ((20, 150), (2, 1), {"dering": True}, (64, 128)),  # ragged tile and blocks
+    ((30, 70), (3, 2), {"dering": True, "align": "center"}, (16, 384)),
+    ((24, 33), (4, 3), {"dering": True, "intermediate_quantize": True}, (13, 20)),
+    ((24, 40), (2, 1), {"intermediate_quantize": True}, (8, 16)),
+    ((24, 40), (3, 2), {"dering": True, "edge_mode": "drop", "normalize": False}, (8, 16)),
+])
+def test_kernel_layout_reenacted_nonlinear(shape, scale, kw, tiles, precision):
+    """The dering and quantize instantiations' host layout (the padded
+    central-tap offsets ``cv``/``ch``) through the kernel's loops."""
+    from lanczos_torch.core.config import reduced_scale
+
+    cfg = ResampleConfig.from_profile(
+        "precise", shape, scale=scale, a=3, precision=precision, **kw
+    )
+    (ih, iw), (oh, ow) = cfg.in_shape, cfg.out_shape
+    nv, dv = reduced_scale(ih, oh)
+    opk = dict(a=3, align=cfg.align.value, edge_mode=cfg.edge_mode,
+               normalize=cfg.normalize)
+    off_v = 0 if cfg.align.value == "zero" else dv - nv
+    plan = rc.build_fused_plan(
+        cfg, tiles[0], banded_weights(ih, oh, **opk), banded_weights(iw, ow, **opk),
+        nv, dv, off_v, tiles[1],
+    )
+    lay = rc.kernel_layout(plan, cfg.precision)
+    assert ("cv" in lay) == cfg.dering
+    x = _img(shape, seed=2).transpose(2, 0, 1).copy()
+    got = _emulate_kernel(x, lay, oh, ow, precision == "bf16", cfg.dering,
+                          cfg.intermediate_quantize)
+    want = rc.fused_resample_reference(torch.from_numpy(x), plan, precision, (oh, ow),
+                                       cfg.dering, cfg.intermediate_quantize)
+    d = np.abs(got.astype(np.int32) - want.numpy().astype(np.int32))
+    lim = 2 if cfg.intermediate_quantize else 1  # same rounding points, other sum order
+    assert d.max() <= lim and (d > 0).mean() <= 0.01
 
 
 def test_fused_call_cpu_runs_plain_version_and_counts_no_launch():

@@ -120,10 +120,11 @@ def test_dimension_mismatch_raises():
         "hls", (16, 24), scale=(2, 1), a=2), "queue 1, item 6"),
     (lambda: lanczos_torch.ResampleConfig.from_profile(
         "c_oracle", (16, 24), scale=(2, 1)), "queue 1, item 6"),
-    (lambda: lanczos_torch.ResampleConfig.from_profile(
-        "precise", (16, 24), scale=(2, 1), dering=True), "dering"),
-    (lambda: lanczos_torch.ResampleConfig.from_profile(
-        "precise", (16, 24), scale=(2, 1), intermediate_quantize=True), "quantized"),
+    # nonlinear configs without a fused plan that v2 does not take either
+    (lambda: lanczos_torch.ResampleConfig(
+        (4096, 4096), (64, 64), dering=True), "dering"),
+    (lambda: lanczos_torch.ResampleConfig(
+        (4096, 4096), (64, 64), intermediate_quantize=True), "quantized"),
     (lambda: lanczos_torch.ResampleConfig((4096, 4096), (64, 64)), "no fused plan"),
 ])
 def test_unported_configs_raise(make, match):
