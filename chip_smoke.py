@@ -13,7 +13,9 @@ not 0:
    scale, center alignment, a batch, a shared-memory-heavy downscale),
    with dering (clamp, reflect and drop edges, rational, width first),
    with the quantized intermediate and with both, fp32 and bf16; kernel 2
-   (v2) at 2/1, 3/1, center-aligned and reflect, dering on and off;
+   (v2) at 2/1, 3/1, center-aligned and reflect, dering on and off; the
+   v1 kernel (3/2, 2/3, 1/16, mixed integer and rational axes, reflect,
+   drop) and every ablation kernel of the fused kernel, fp32 and bf16;
 4. the main path: ``lanczos_torch.upscale(img, scale=(2, 1),
    profile="precise", a=3)`` on a seeded 2160×3840×3 uint8 frame in fp32
    and bf16, with the kernel's launch counts, held against a float64
@@ -25,12 +27,23 @@ not 0:
    ``FusedOps(cfg, "cuda", variant="v2")``; each run with its own launch
    counts, held against its plain version and against float64 gathers
    with the clamp, the quantize and the pass order;
-7. times of every new kernel and its plain version at 4K→8K.
+7. times of every new kernel and its plain version at 4K→8K;
+8. the v1 path at full width, fp32 and bf16, each run with its own launch
+   counts: a Lanczos-3 thumbnail of an 8K frame (4320×7680×3 → 270×480×3,
+   no fused plan) through ``upscale(..., backend="pallas")``, FSR's
+   "Quality" 1440p→4K (3/2) and a 4/3 anamorphic desqueeze (2160×2880 →
+   2160×3840) through ``FusedOps(variant="v1")``; each against its plain
+   version and a float64 gather;
+9. times of the v1 kernel and its plain version on those three;
+10. the fused kernel's ablation harness (``lanczos_torch.tools.ablate_fused``)
+   over every variant at 4K→8K, 12 planes: each against its plain version
+   and the production kernel's bytes, and timed beside it.
 
 Limits: fp32 ≤ 1 LSB on ≤ 1% of pixels (the quantized intermediate ≤ 2
 LSB: one flipped intermediate value spreads over the taps); bf16 ≤ 3 LSB
-on ≤ 50% of pixels; kernel 2 and its plain version identical bytes.  The
-last lines are one JSON object of the kernels and one of the device.
+on ≤ 50% of pixels; kernel 2, the v1 kernel and the ablation kernels and
+their plain versions identical bytes.  The last lines are one JSON object
+of the kernels and one of the device.
 """
 
 from __future__ import annotations
@@ -46,6 +59,7 @@ import numpy as np
 LIMITS = {"fp32": (1, 0.01), "bf16": (3, 0.50), "quant": (2, 0.01), "exact": (0, 0.0)}
 FRAME = (2160, 3840)  # the main path's input, 4K; output 2x each way
 FP32_PEAK_TFLOPS = 67.0  # H100 SXM, SIMT fp32, NVIDIA's data sheet at 700 W
+T0 = time.perf_counter()
 
 
 def compare(name: str, got, want, precision: str) -> tuple[int, float]:
@@ -111,12 +125,15 @@ def gather_f64(img: np.ndarray, cfg) -> np.ndarray:
 def plain_version(x, ops):
     """The plain PyTorch version of whatever kernel ``ops`` runs, on the
     planar (NC, H, W) uint8 ``x``, on ``x``'s device."""
+    from lanczos_torch.ops import resample_phase_cuda as rp
     from lanczos_torch.ops import resample_shift_cuda as rs
     from lanczos_torch.ops.resample_cuda import fused_resample_reference
 
     if ops.tr_ops is not None:
         return plain_version(x.transpose(-1, -2).contiguous(), ops.tr_ops).transpose(-1, -2)
     cfg = ops.cfg
+    if ops.phase is not None:
+        return rp.phase_resample_reference(x, ops.phase.plan, cfg.precision, cfg.out_shape)
     if ops.shift is not None:
         return rs.shift_resample_reference(x, ops.shift.plan, cfg.out_shape, cfg.dering)
     return fused_resample_reference(x, ops.plan, cfg.precision, cfg.out_shape,
@@ -132,18 +149,22 @@ def limits(cfg, variant: str) -> str:
     return "quant" if cfg.intermediate_quantize else "fp32"
 
 
-def reset_counts() -> None:
-    from lanczos_torch.ops import resample_cuda as rc, resample_shift_cuda as rs
+def _counters() -> tuple:
+    from lanczos_torch.ops import resample_cuda as rc, resample_phase_cuda as rp
+    from lanczos_torch.ops import resample_shift_cuda as rs
+    from lanczos_torch.tools import ablate_fused as af
 
-    for counts in (rc.launches, rs.launches):
+    return rc.launches, rs.launches, rp.launches, af.launches
+
+
+def reset_counts() -> None:
+    for counts in _counters():
         for k in counts:
             counts[k] = 0
 
 
 def read_counts() -> dict:
-    from lanczos_torch.ops import resample_cuda as rc, resample_shift_cuda as rs
-
-    return {k: n for k, n in (rc.launches | rs.launches).items() if n}
+    return {k: n for counts in _counters() for k, n in counts.items() if n}
 
 
 def dense_flops(plan, nc: int) -> float:
@@ -156,17 +177,9 @@ def dense_flops(plan, nc: int) -> float:
 
 def _plan_with(cfg, tile: int, cb: int):
     """A plan at given tile and block targets (the generic-shape cases)."""
-    from lanczos_torch.core.config import reduced_scale
-    from lanczos_torch.core.weights import banded_weights
-    from lanczos_torch.ops.resample_cuda import build_fused_plan
+    from lanczos_torch.ops.resample_cuda import plan_at
 
-    (ih, iw), (oh, ow) = cfg.in_shape, cfg.out_shape
-    nv, dv = reduced_scale(ih, oh)
-    kw = dict(a=cfg.a, edge_mode=cfg.edge_mode, normalize=cfg.normalize,
-              align=cfg.align.value)
-    off_v = 0 if cfg.align.value == "zero" else dv - nv
-    plan = build_fused_plan(cfg, tile, banded_weights(ih, oh, **kw),
-                            banded_weights(iw, ow, **kw), nv, dv, off_v, cb)
+    plan = plan_at(cfg, tile, cb)
     if plan is None:
         raise AssertionError(f"no plan at tile {tile}, cb {cb} for {cfg}")
     return plan
@@ -277,6 +290,42 @@ def main() -> None:
             torch.cuda.synchronize()
             compare(f"{ops.kernel} {name}{' dering' if dering else ''}", got, want,
                     "exact")
+    v1_cases = [  # name, (h, w), out, overrides
+        ("3/2 24x40", (24, 40), (36, 60), {}),
+        ("2/3 align=center 36x60", (36, 60), (24, 40), {"align": "center"}),
+        ("1/16 256x256 (support 48)", (256, 256), (16, 16), {}),
+        ("1/16 384x384 (no fused plan, tile shrinks)", (384, 384), (24, 24), {}),
+        ("2/1 by 3/2 reflect 24x40", (24, 40), (48, 60), {"edge_mode": "reflect"}),
+        ("3/2 by 1/1 drop 24x40", (24, 40), (36, 40),
+         {"edge_mode": "drop", "normalize": False}),
+        ("1/16 reflect 32x48 (support > image)", (32, 48), (2, 3), {"edge_mode": "reflect"}),
+    ]
+    for precision in ("fp32", "bf16"):
+        for name, (h, w), out, kw in v1_cases:
+            cfg = lanczos_torch.ResampleConfig.from_profile(
+                "precise", (h, w), out_shape=out, a=3, precision=precision, **kw
+            )
+            ops = rc.FusedOps(cfg, "cuda", variant="v1")
+            x = torch.from_numpy(rng.integers(0, 256, (3, h, w), dtype=np.uint8)).cuda()
+            got = rc.upscale_planar(x, ops)
+            want = plain_version(x, ops)
+            torch.cuda.synchronize()
+            compare(f"{precision} {ops.kernel} {name}", got, want, "exact")
+    from lanczos_torch.tools import ablate_fused as af
+
+    for precision in ("fp32", "bf16"):
+        for (h, w), out, tile, cb in (((36, 64), (72, 128), 16, 32),
+                                      ((50, 92), (100, 184), 8, 32)):
+            cfg = af.frame_cfg(lanczos_torch.Precision(precision), (h, w), out)
+            ops = rc.FusedOps(cfg, "cuda", _plan_with(cfg, tile, cb))
+            x = torch.from_numpy(rng.integers(0, 256, (3, h, w), dtype=np.uint8)).cuda()
+            for stage in af.STAGES:
+                got = af.ablate_call(ops, x, stage)
+                want = af.ablation_reference(x, ops.plan, cfg.precision, stage, out)
+                torch.cuda.synchronize()
+                variant = ("f32" if precision == "fp32" else "") + stage
+                compare(f"ablate_fused_{variant} {h}x{w}->{out[0]}x{out[1]}", got, want,
+                        "exact")
 
     # ---- 4. main path
     print("== 4. main path: upscale 2160x3840x3 -> 4320x7680x3, a=3, precise",
@@ -457,6 +506,121 @@ def main() -> None:
             "plain_ms": plain_ms,
         })
 
+    del runs
+    torch.cuda.empty_cache()
+
+    # ---- 8. v1 at full width
+    print("== 8. v1 at full width, 3 planes, fp32 and bf16", flush=True)
+    v1_paths = [  # name, in, out, via: upscale(backend="pallas") or FusedOps(variant="v1")
+        ("8K->480x270 thumbnail (1/16)", (4320, 7680), (270, 480), "pallas"),
+        ("1440p->4K, FSR Quality (3/2)", (1440, 2560), (2160, 3840), "v1"),
+        ("2160x2880->4K desqueeze (1/1 by 4/3)", (2160, 2880), (2160, 3840), "v1"),
+    ]
+    pool = ThreadPoolExecutor(len(v1_paths))
+    t0 = time.perf_counter()
+    v1_runs = []
+    for name, shp, out, via in v1_paths:
+        img_np = np.random.default_rng(0).integers(0, 256, shp + (3,), dtype=np.uint8)
+        ref = pool.submit(gather_f64, img_np, lanczos_torch.ResampleConfig.from_profile(
+            "precise", shp, out_shape=out, a=3))
+        xin = torch.from_numpy(img_np).cuda()
+        planar_in = xin.permute(2, 0, 1).contiguous()
+        for p in ("fp32", "bf16"):
+            cfg = lanczos_torch.ResampleConfig.from_profile(
+                "precise", shp, out_shape=out, a=3, precision=p
+            )
+            variant = rc.pallas_variant(cfg) if via == "pallas" else "v1"
+            ops = rc.FusedOps(cfg, "cuda", variant=variant)
+            if ops.variant != "v1" or ops.plan is not None:
+                raise AssertionError(f"{name}: runs {ops.kernel}, not v1")
+            torch.cuda.synchronize()
+            reset_counts()
+            if via == "pallas":
+                y = lanczos_torch.upscale(xin, out_shape=out, a=3, precision=p,
+                                          backend="pallas")
+            else:
+                y = rc.resample_2d_cuda(xin, ops)
+            torch.cuda.synchronize()
+            n = read_counts()
+            print(f"  {p} {name} ({ops.kernel}, tiles {ops.phase.tiles}): launches {n}",
+                  flush=True)
+            if n != {ops.kernel: 1}:
+                raise AssertionError(f"{name}: expected one launch of {ops.kernel}, got {n}")
+            if tuple(y.shape) != out + (3,) or y.dtype != torch.uint8 or not y.is_cuda:
+                raise AssertionError(f"{name}: got {tuple(y.shape)} {y.dtype} {y.device}")
+            want = plain_version(planar_in, ops).permute(1, 2, 0)
+            err, _ = compare(f"{p} {name} vs plain version", y, want, "exact")
+            v1_runs.append((name, p, ops, planar_in, y.cpu().numpy(), ref, err))
+            del y, want
+    for name, p, ops, _, y, ref, _ in v1_runs:
+        compare(f"{p} {name} vs float64 gather", y, ref.result(), p)
+    print(f"  float64 numpy gather references (3, in parallel): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    pool.shutdown()
+    torch.cuda.empty_cache()
+
+    # ---- 9. v1 times
+    print("== 9. v1 times (3 planes, CUDA events, mean of 20 after 3 warm-up; order "
+          "plain, kernel, kernel, plain)", flush=True)
+    v1_entries = {}
+    for name, p, ops, planar_in, _, _, err in v1_runs:
+        def kernel_fn():
+            return rc.upscale_planar(planar_in, ops)
+
+        def plain_fn():
+            return plain_version(planar_in, ops)
+
+        t = [cuda_time_ms(f) for f in (plain_fn, kernel_fn, kernel_fn, plain_fn)]
+        print(f"  {p} {name} ({ops.kernel}): kernel {t[1]:.4f} / {t[2]:.4f} ms/frame, "
+              f"plain version {t[0]:.4f} / {t[3]:.4f} ms/frame [{smi}]", flush=True)
+        entry = v1_entries.setdefault(ops.kernel, {
+            "name": ops.kernel,
+            "route": "cuda",
+            "source": "lanczos_torch/csrc/phase_resample.cu",
+            "replaces": "lanczos_tpu/ops/resample_pallas.py:687",
+            "launches": 0,
+            "max_abs_err": 0,
+            # the times of the thumbnail, the path that only v1 takes
+            "ms": (t[1] + t[2]) / 2,
+            "plain_ms": (t[0] + t[3]) / 2,
+        })
+        entry["launches"] += 1
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    kernels += list(v1_entries.values())
+    del v1_runs
+    torch.cuda.empty_cache()
+
+    # ---- 10. the ablation harness
+    print("== 10. the fused kernel's ablation harness: 12 planes 2160x3840 -> 4320x7680, "
+          f"tile 64, every variant; ms per 3-plane frame [{smi}]", flush=True)
+    specs = [af.parse_spec(f"64:{v}") for v in af.VARIANTS]
+    himg = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (af.PLANES,) + FRAME, dtype=np.uint8)).cuda()
+    torch.cuda.synchronize()
+    reset_counts()
+    results = af.run(specs, himg, log=lambda line: print("  " + line, flush=True))
+    torch.cuda.synchronize()
+    n = read_counts()
+    for r in results:
+        name = f"ablate_fused_{r['variant']}"
+        if not r["ok"] or (r["variant"] in ("full", "f32full") and not r["same"]):
+            raise AssertionError(f"{r['spec']}: bytes differ where they must not")
+        if n.get(name, 0) < 1:
+            raise AssertionError(f"{name} was not launched by the harness")
+        stage = r["variant"].removeprefix("f32")
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "lanczos_torch/csrc/ablate_fused.cu",
+            "replaces": "tools/ablate_mxu.py:" + ("289" if stage == "swpipe" else "37"),
+            "launches": n[name],
+            "max_abs_err": r["plain_max_abs_diff"],
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+        })
+    del himg
+
+    print(f"  chip_smoke took {time.perf_counter() - T0:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -25,15 +25,16 @@
 // bounds from shared memory (as 8-float vectors, from rows padded by 4 words so that a
 // warp's loads spread over the banks), so dering adds no products.
 //
-// What bounds it on the H100: arithmetic.  Both passes are dense products over the
-// per-tile matrices, so at 4K->8K (tile 64, cb 128, kv 37, kh 69) a frame costs
+// What bounds it on the H100: not its arithmetic.  Both passes are dense products over
+// the per-tile matrices, so at 4K->8K (tile 64, cb 128, kv 37, kh 69) a frame costs
 // about 90 multiply-adds per output pixel, ~18 GFLOP, against ~124 MB of compulsory
-// uint8 traffic: far above the card's fp32 ridge point, so memory is not the limit.
-// This first version keeps the work in plain fp32 FMA on the SIMT cores with an
-// 8x4 register tile per thread (two 16-byte shared loads and one 16-byte L1/L2 load
+// uint8 traffic; but deleting either pass's products saves only 0-14% of the time, and
+// an asynchronous band ring gains 4-5% (the ablation kernels, ablate_fused.cu; PERF.md),
+// so the time goes to the serialized load / vertical / horizontal phases of too few
+// blocks in flight.  The work is plain fp32 FMA on the SIMT cores with an 8x4 register
+// tile per thread (fused_tile.cuh: two 16-byte shared loads and one 16-byte L1/L2 load
 // of weights per 32 FMAs); the weights stay in global memory, where all blocks share
-// them through L2.  Tensor cores (wgmma, TMA) or a band-sparse FMA that skips the
-// zeros of the dense matrices are the next steps and are not done here.
+// them through L2.
 //
 // Layouts (all row-major, contiguous; the wrapper checks them):
 //   x      (nc, H, W) uint8            out    (nc, OH, OW) uint8
@@ -42,43 +43,11 @@
 //   cv     (num_tiles, 2, tile_p) int32  ch  (n_uniq, 2, cb_p) int32  (DERING only)
 // with tile_p = tile rounded up to 8 and cb_p = cb rounded up to 4, zero padded.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "fused_tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int MR = 8;  // rows of a thread's register tile (the shared-memory operand)
-constexpr int NR = 4;  // columns of a thread's register tile (the global-memory operand)
 constexpr int kDeringPad = 4;  // words added to both shared row strides when dering
-
-struct Geometry {
-  int H, W, OH, OW, tile, tile_p, kv, cb, cb_p, kh, kh_p;
-};
-
-__device__ __forceinline__ void load4(const float* __restrict__ p, float (&v)[NR]) {
-  const float4 t = __ldg(reinterpret_cast<const float4*>(p));
-  v[0] = t.x;
-  v[1] = t.y;
-  v[2] = t.z;
-  v[3] = t.w;
-}
-
-__device__ __forceinline__ void load4(const __nv_bfloat16* __restrict__ p, float (&v)[NR]) {
-  // four bf16 in 8 bytes, element 0 in the low half of the first word
-  const uint2 t = __ldg(reinterpret_cast<const uint2*>(p));
-  v[0] = __uint_as_float(t.x << 16);
-  v[1] = __uint_as_float(t.x & 0xffff0000u);
-  v[2] = __uint_as_float(t.y << 16);
-  v[3] = __uint_as_float(t.y & 0xffff0000u);
-}
-
-__device__ __forceinline__ float round_mid(float v, const float*) { return v; }
-
-__device__ __forceinline__ float round_mid(float v, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
 
 // eight consecutive floats of shared memory (16-byte aligned)
 __device__ __forceinline__ void load8(const float* p, float (&v)[MR]) {
@@ -91,30 +60,6 @@ __device__ __forceinline__ void load8(const float* p, float (&v)[MR]) {
 // jnp.clip(v, min(a, b), max(a, b))
 __device__ __forceinline__ float clamp_between(float v, float a, float b) {
   return fminf(fmaxf(v, fminf(a, b)), fmaxf(a, b));
-}
-
-// acc[m][n] = sum_k At[k * lda + m0 + m] * B[k * ldb + n0 + n] over k < K.
-// At lives in shared memory (k-major, 16-byte aligned rows); B in global memory.
-template <typename WT>
-__device__ __forceinline__ void micro_tile(const float* __restrict__ At, int lda,
-                                           const WT* __restrict__ B, int ldb, int K, int m0,
-                                           int n0, float (&acc)[MR][NR]) {
-#pragma unroll
-  for (int m = 0; m < MR; ++m)
-#pragma unroll
-    for (int n = 0; n < NR; ++n) acc[m][n] = 0.f;
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    const float4 a0 = *reinterpret_cast<const float4*>(At + k * lda + m0);
-    const float4 a1 = *reinterpret_cast<const float4*>(At + k * lda + m0 + 4);
-    const float a[MR] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-    float b[NR];
-    load4(B + (size_t)k * ldb + n0, b);
-#pragma unroll
-    for (int m = 0; m < MR; ++m)
-#pragma unroll
-      for (int n = 0; n < NR; ++n) acc[m][n] = fmaf(a[m], b[n], acc[m][n]);
-  }
 }
 
 template <typename WT, bool DERING, bool QUANT>

@@ -1,14 +1,20 @@
 """High-level upscaler (the port of ``lanczos_tpu/models/upscaler.py``).
 
 An :class:`Upscaler` owns one static :class:`ResampleConfig`, its plan
-and the plan's tables on each device it has run on.  The port has one
-backend so far, its hand-written CUDA kernels (``"cuda"``, what ``"auto"``
-picks), routed as the JAX package's ``auto`` routes its Pallas kernels
-(``ops/resample_cuda.FusedOps``): the fused kernel for every uint8
-``precise``-family config with a fused plan, linear, with the dering
-clamp or with the quantized intermediate, either pass order; kernel 2 for
-integer-scale dering without one.  Every other config raises
-``NotImplementedError`` naming the slice of the port that will bring it.
+and the plan's tables on each device it has run on.  The port's backends
+are its hand-written CUDA kernels, routed by ``ops/resample_cuda.FusedOps``:
+
+- ``"cuda"`` (what ``"auto"`` picks) as the JAX package's ``auto`` routes
+  its Pallas kernels: the fused kernel for every uint8 ``precise``-family
+  config with a fused plan, linear, with the dering clamp or with the
+  quantized intermediate, either pass order; kernel 2 for integer-scale
+  dering without one;
+- ``"pallas"`` as ``PallasOps(variant="auto")`` on a TPU: the fused
+  kernel where a plan fits, else kernel 2 for any integer config, else
+  v1 (``ops/resample_phase_cuda``), e.g. for a steep rational downscale.
+
+Every other config raises ``NotImplementedError`` naming the slice of the
+port that will bring it.
 
 A torch tensor runs on its own device: on CUDA through the kernel, on the
 CPU through the kernel's plain PyTorch version.  A numpy array goes to the
@@ -19,6 +25,7 @@ raises where CUDA is absent: the port never falls back to the CPU.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import threading
 from collections import OrderedDict
 from typing import Optional, Tuple
@@ -29,6 +36,7 @@ import torch
 from lanczos_torch.core.config import Profile, ResampleConfig
 from lanczos_torch.ops.resample_cuda import (
     FusedOps,
+    pallas_variant,
     resample_2d_cuda,
     upscale_planar,
 )
@@ -47,18 +55,20 @@ def _as_tensor(img, device: torch.device) -> torch.Tensor:
 
 class Upscaler:
     def __init__(self, cfg: ResampleConfig, backend: str = "auto", device="cuda"):
-        if backend not in ("auto", "cuda"):
+        if backend not in ("auto", "cuda", "pallas"):
             raise NotImplementedError(
                 f"backend {backend!r} is not ported yet: the port has its "
-                "CUDA kernels ('cuda'); the gather, shift and block "
-                "paths are ROADMAP queue 1, items 3 and 5"
+                "CUDA kernels ('cuda', and 'pallas' as the JAX package routes "
+                "its Pallas kernels); the gather, shift and block paths are "
+                "ROADMAP queue 1, items 3 and 5"
             )
         self.cfg = cfg
-        self.backend = "cuda"
+        self.backend = "pallas" if backend == "pallas" else "cuda"
+        self.variant = pallas_variant(cfg) if backend == "pallas" else "auto"
         self.device = torch.device(device)
         # raises NotImplementedError for configs the slice does not cover
-        cpu = FusedOps(cfg, "cpu")
-        self.plan = cpu.plan  # the fused plan; None where kernel 2 runs
+        cpu = FusedOps(cfg, "cpu", variant=self.variant)
+        self.plan = cpu.plan  # the fused plan; None where kernel 2 or v1 runs
         self._ops = {torch.device("cpu"): cpu}
         self._lock = threading.Lock()
 
@@ -66,10 +76,18 @@ class Upscaler:
         with self._lock:
             ops = self._ops.get(device)
             if ops is None:
-                ops = self._ops[device] = FusedOps(self.cfg, device, self.plan)
+                ops = self._ops[device] = FusedOps(
+                    self.cfg, device, self.plan, self.variant
+                )
             return ops
 
     def _check_dtype(self, x: torch.Tensor) -> None:
+        if x.dtype != torch.uint8 and self.backend == "pallas":
+            raise NotImplementedError(
+                f"{x.dtype} input on backend 'pallas': the JAX package runs it "
+                "on its shift and block paths (ROADMAP queue 1, items 3 and "
+                "5); the kernels are uint8 -> uint8"
+            )
         if x.dtype != torch.uint8:
             raise NotImplementedError(
                 f"{x.dtype} input: the float and uint16 contract comes with "
@@ -104,12 +122,22 @@ class Upscaler:
         return upscale_planar(x, self._ops_for(x.device))
 
 
+def _host_bytes(plan) -> int:
+    """Bytes of the numpy arrays in a plan, its per-axis plans included."""
+    return sum(
+        v.nbytes if isinstance(v, np.ndarray)
+        else _host_bytes(v) if dataclasses.is_dataclass(v) else 0
+        for v in vars(plan).values()
+    )
+
+
 def _device_table_bytes(model: Upscaler) -> int:
     """Bytes of the weight tables an Upscaler holds: the host plan's
     arrays and every device copy of them."""
     cpu = model._ops[torch.device("cpu")]
-    plan = model.plan if model.plan is not None else cpu.shift.plan
-    total = sum(a.nbytes for a in vars(plan).values() if isinstance(a, np.ndarray))
+    held = (o.plan for o in (cpu, cpu.shift, cpu.phase) if o is not None)
+    plan = next(p for p in held if p is not None)
+    total = _host_bytes(plan)
     for ops in model._ops.values():
         total += sum(t.numel() * t.element_size() for t in ops.table_tensors())
     return total

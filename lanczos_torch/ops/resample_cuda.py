@@ -26,7 +26,9 @@ the plan's ``center_v`` / ``center_h`` band offsets) and the uint8-quantized
 intermediate.  Width-first configs with either run the height-first kernel
 on the transposed image (:func:`transposed_cfg`, ``FusedOps.tr_ops``).
 Integer-scale dering without a fused plan goes to kernel 2
-(``resample_shift_cuda``).
+(``resample_shift_cuda``); the ``v1``/``v2`` variants, which ask for no
+fused plan, take kernel 2 for integer scales and v1
+(``resample_phase_cuda``) for the rest.
 
 On a CUDA tensor :func:`fused_call` launches the kernel; on a CPU tensor it
 runs :func:`fused_resample_reference`, which walks the same plan.
@@ -46,8 +48,9 @@ from lanczos_torch.core.config import EdgeMode, Order, Precision, ResampleConfig
 from lanczos_torch.core.config import reduced_scale
 from lanczos_torch.core.weights import banded_weights
 from lanczos_torch.ops import _build
+from lanczos_torch.ops.resample_phase_cuda import PhaseOps, phase_call
 from lanczos_torch.ops.resample_shift_cuda import (
-    GATHER, MAX_PHASES, ShiftOps, shift_call,
+    GATHER, ShiftOps, integer_scale, shift_call,
 )
 
 # Launches of the fused kernel by this process, per instantiation; only
@@ -202,6 +205,26 @@ def build_fused_plan(
     return plan if plan.smem_bytes() <= _build.SMEM_LIMIT else None
 
 
+def _operators(cfg: ResampleConfig) -> tuple:
+    """``build_fused_plan``'s operator arguments for a config: the banded
+    operators of both axes, ``nv``, ``dv`` and the vertical offset."""
+    (ih, iw), (oh, ow) = cfg.in_shape, cfg.out_shape
+    (nv, dv) = reduced_scale(ih, oh)
+    kw = dict(
+        a=cfg.a, filter_name=cfg.filter, edge_mode=cfg.edge_mode,
+        normalize=cfg.normalize, coord_mode="exact", align=cfg.align.value,
+    )
+    off_v = 0 if cfg.align.value == "zero" else dv - nv
+    return banded_weights(ih, oh, **kw), banded_weights(iw, ow, **kw), nv, dv, off_v
+
+
+def plan_at(cfg: ResampleConfig, tile: int, cb: int = 128) -> Optional[FusedPlan]:
+    """The fused plan at a given row tile and column block target, or None
+    where it does not fit (the ablation harness's ``tile:variant`` specs,
+    and hand-picked plans in tests)."""
+    return build_fused_plan(cfg, tile, *_operators(cfg), cb)
+
+
 @functools.lru_cache(maxsize=8)  # plans hold multi-MB float64 weight stacks
 def fused_plan(cfg: ResampleConfig) -> Optional[FusedPlan]:
     """The fused plan of a whole-frame config, or None where none fits.
@@ -217,17 +240,9 @@ def fused_plan(cfg: ResampleConfig) -> Optional[FusedPlan]:
     order shows (``FusedOps`` runs its :func:`transposed_cfg`)."""
     if cfg.order != Order.HEIGHT_FIRST and (cfg.dering or cfg.intermediate_quantize):
         return None
-    (ih, iw), (oh, ow) = cfg.in_shape, cfg.out_shape
-    (nv, dv) = reduced_scale(ih, oh)
-    kw = dict(
-        a=cfg.a, filter_name=cfg.filter, edge_mode=cfg.edge_mode,
-        normalize=cfg.normalize, coord_mode="exact", align=cfg.align.value,
-    )
-    op_v = banded_weights(ih, oh, **kw)
-    op_h = banded_weights(iw, ow, **kw)
-    off_v = 0 if cfg.align.value == "zero" else dv - nv
+    ops = _operators(cfg)
     for tile, cb in ((64, 128), (32, 64), (16, 32), (8, 16)):
-        plan = build_fused_plan(cfg, tile, op_v, op_h, nv, dv, off_v, cb)
+        plan = build_fused_plan(cfg, tile, *ops, cb)
         if plan is not None:
             return plan
     return None
@@ -466,14 +481,28 @@ def _v2_auto(cfg: ResampleConfig) -> bool:
     """Where ``auto`` falls back to kernel 2 when no fused plan fits
     (``lanczos_tpu/models/upscaler.py``'s ``_pallas_auto_eligible``):
     height-first integer-scale dering without drop edges or quantize."""
-    (nv, dv), (nh, dh) = cfg.scale_h, cfg.scale_w
     return (
         cfg.dering
         and cfg.order == Order.HEIGHT_FIRST
         and cfg.edge_mode != EdgeMode.DROP
         and not cfg.intermediate_quantize
-        and dv == 1 and dh == 1 and nv <= MAX_PHASES and nh <= MAX_PHASES
+        and integer_scale(cfg)
     )
+
+
+def _plan_cfg(cfg: ResampleConfig) -> ResampleConfig:
+    """The config whose fused plan runs ``cfg``: its :func:`transposed_cfg`
+    for width-first dering or quantize, else itself."""
+    if cfg.order != Order.HEIGHT_FIRST and (cfg.dering or cfg.intermediate_quantize):
+        return transposed_cfg(cfg)
+    return cfg
+
+
+def pallas_variant(cfg: ResampleConfig) -> str:
+    """The variant ``PallasOps(variant="auto")`` runs on a TPU, for
+    ``Upscaler(cfg, backend="pallas")``: ``"mxu"`` where a fused plan fits,
+    else ``"v1"`` (kernel 2 for an integer config, v1 for the rest)."""
+    return "mxu" if fused_plan(_plan_cfg(cfg)) is not None else "v1"
 
 
 def _no_plan(cfg: ResampleConfig) -> str:
@@ -494,15 +523,18 @@ class FusedOps:
     ``variant`` picks the kernel as ``PallasOps`` does: ``"auto"`` the
     fused kernel where a plan fits (linear or nonlinear), else kernel 2 for
     height-first integer-scale dering (:func:`_v2_auto`); ``"mxu"`` the
-    fused kernel or ``NotImplementedError``; ``"v2"`` kernel 2
-    (``resample_shift_cuda.ShiftOps``, which raises where ``PallasOps``
-    does); ``"v1"`` is not ported yet.  A width-first config with dering
-    or the quantized intermediate holds the ops of its
-    :func:`transposed_cfg` (``tr_ops``) and runs on the transposed image.
-    ``plan`` is a hand-built fused plan (checked against the config).
+    fused kernel or ``NotImplementedError``; ``"v2"`` and ``"v1"`` alike
+    no fused plan: kernel 2 (``resample_shift_cuda.ShiftOps``) where D = 1
+    and N <= 16 on both axes (``PallasOps.v2``), else v1
+    (``resample_phase_cuda.PhaseOps``), each raising where ``PallasOps``
+    raises.  A width-first config with dering or the quantized
+    intermediate holds the ops of its :func:`transposed_cfg` (``tr_ops``)
+    and runs on the transposed image.  ``plan`` is a hand-built fused plan
+    (checked against the config).
 
-    ``variant`` and ``kernel`` then name what runs; ``plan`` is the fused
-    plan and ``shift`` kernel 2's ops, one of them None.  On CUDA the
+    ``variant`` (``"mxu"``, ``"v2"`` or ``"v1"``) and ``kernel`` then name
+    what runs; of ``plan`` (the fused plan), ``shift`` (kernel 2's ops) and
+    ``phase`` (v1's ops) one is set and the others are None.  On CUDA the
     fused weights are uploaded once in the kernel's layout (fp32, or bf16
     for ``Precision.BF16``); on the CPU the plain versions run."""
 
@@ -517,37 +549,38 @@ class FusedOps:
                 "the bit-exact profiles (hls, c_oracle) come with their own "
                 "slice (ROADMAP queue 1, item 6)"
             )
-        if variant == "v1":
-            raise NotImplementedError(
-                "the v1 kernel (_fused_kernel) comes with the next slice "
-                "(ROADMAP queue 2, item 3)"
-            )
         self.cfg = cfg
         self.device = torch.device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
         elif self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {self.device}")
-        self.tr_ops = self.shift = self.tensors = self.args = None
-        if cfg.order != Order.HEIGHT_FIRST and (cfg.dering or cfg.intermediate_quantize):
-            tcfg = transposed_cfg(cfg)
+        self.tr_ops = self.shift = self.phase = self.tensors = self.args = None
+        tcfg = _plan_cfg(cfg)
+        if tcfg is not cfg:
             if variant == "auto" and plan is None and fused_plan(tcfg) is None:
                 raise NotImplementedError(_no_plan(cfg))
             self.tr_ops = FusedOps(tcfg, self.device, plan, variant)
-            for k in ("plan", "shift", "variant", "kernel"):
+            for k in ("plan", "shift", "phase", "variant", "kernel"):
                 setattr(self, k, getattr(self.tr_ops, k))
             return
-        if variant != "v2":
+        if variant in ("auto", "mxu"):
             if plan is None:
                 plan = fused_plan(cfg)
             else:
                 _check_plan(plan, cfg)
             if plan is None and (variant == "mxu" or not _v2_auto(cfg)):
                 raise NotImplementedError(_no_plan(cfg))
+        else:
+            plan = None
         self.plan = plan
         if plan is None:
-            self.variant, self.kernel = "v2", "shift_resample"
-            self.shift = ShiftOps(cfg, self.device)
+            if integer_scale(cfg):
+                self.variant, self.kernel = "v2", "shift_resample"
+                self.shift = ShiftOps(cfg, self.device)
+            else:
+                self.phase = PhaseOps(cfg, self.device)
+                self.variant, self.kernel = "v1", self.phase.kernel
             return
         bf16 = cfg.precision == Precision.BF16
         self.variant = "mxu"
@@ -575,7 +608,7 @@ class FusedOps:
         """The tensors of weights and tables this ops holds on its device."""
         if self.tr_ops is not None:
             return self.tr_ops.table_tensors()
-        held = self.shift.tensors if self.shift is not None else self.tensors
+        held = next(o for o in (self.shift, self.phase, self) if o is not None).tensors
         return list((held or {}).values())
 
 
@@ -649,7 +682,12 @@ def upscale_planar(img: torch.Tensor, ops: FusedOps) -> torch.Tensor:
     x = img if batched else img[None]
     b, c = x.shape[0], x.shape[1]
     x = x.reshape(b * c, *x.shape[2:]).contiguous()
-    y = shift_call(ops.shift, x) if ops.shift is not None else fused_call(ops, x)
+    if ops.shift is not None:
+        y = shift_call(ops.shift, x)
+    elif ops.phase is not None:
+        y = phase_call(ops.phase, x)
+    else:
+        y = fused_call(ops, x)
     y = y.reshape(b, c, *ops.cfg.out_shape)
     return y if batched else y[0]
 

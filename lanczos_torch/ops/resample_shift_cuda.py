@@ -70,6 +70,8 @@ class ShiftPlan:
 
 
 def _floors(n: int, d: int, off: int) -> np.ndarray:
+    """Per-phase coordinate floors ``(2·p·d + off)//(2·n)`` (Python floor
+    division: ``off`` is negative for a center-aligned upscale)."""
     return np.array([(2 * p * d + off) // (2 * n) for p in range(n)], np.int32)
 
 
@@ -121,12 +123,13 @@ def shift_plan_from_reference(ops) -> ShiftPlan:
 # ---------------------------------------------------------------------------
 
 
-def _shift_pass(x, tbl, fp, out_size: int, s: int, axis: int, dering: bool):
-    """One axis of the shift-FMA over the padded ``x``, in tap order."""
+def _shift_pass(x, tbl, fp, out_size: int, s: int, axis: int, dering: bool, d: int = 1):
+    """One axis of the shift-FMA over the padded ``x``, in tap order: output
+    ``o`` (phase ``p = o % N``) reads ``x[(o//N)·d + fp[p] + 1 + t]``."""
     n = tbl.shape[0]
     o = np.arange(out_size)
     ph = o % n
-    base = torch.from_numpy((o // n + fp[ph] + 1).astype(np.int64)).to(x.device)
+    base = torch.from_numpy(((o // n) * d + fp[ph] + 1).astype(np.int64)).to(x.device)
     w = torch.from_numpy(np.ascontiguousarray(tbl[ph])).to(x.device)  # (out, 2s)
     shape = [1] * x.dim()
     shape[axis] = out_size
@@ -188,44 +191,53 @@ def kernel_tiles(plan: ShiftPlan) -> tuple:
     return None
 
 
+def integer_scale(cfg: ResampleConfig) -> bool:
+    """v2's domain (``PallasOps.v2``): D = 1 and N <= 16 on both axes."""
+    (nv, dv), (nh, dh) = cfg.scale_h, cfg.scale_w
+    return dv == 1 and dh == 1 and nv <= MAX_PHASES and nh <= MAX_PHASES
+
+
+def refuse_without_plan(cfg: ResampleConfig) -> None:
+    """Raise ``NotImplementedError`` where ``PallasOps`` raises for a config
+    without an MXU plan (v1 and v2 alike): drop edges with normalization
+    or dering, the quantized intermediate, width-first or rational
+    dering."""
+    drop = cfg.edge_mode == EdgeMode.DROP
+    if drop and cfg.normalize:
+        raise NotImplementedError(
+            "drop edges with normalization need a fused plan (a zero pad "
+            f"cannot renormalize); {GATHER}"
+        )
+    if cfg.intermediate_quantize:
+        raise NotImplementedError(
+            f"the quantized intermediate needs a fused plan; {GATHER}"
+        )
+    if drop and cfg.dering:
+        raise NotImplementedError(
+            "drop-edge dering clamps to edge-clamped taps, which a zero pad "
+            f"does not have; {GATHER}"
+        )
+    if cfg.dering and (cfg.order != Order.HEIGHT_FIRST or not integer_scale(cfg)):
+        raise NotImplementedError(
+            "dering without a fused plan needs a height-first integer "
+            f"upscale (N <= {MAX_PHASES}) for v2; {GATHER}"
+        )
+
+
 class ShiftOps:
     """One v2 config's plan, on one device.
 
     Raises ``NotImplementedError`` where ``PallasOps`` raises for a config
-    without an MXU plan: drop edges with normalization or dering, the
-    quantized intermediate, width-first or rational dering.  A linear
-    config outside v2's domain runs v1 in the JAX package, which is not
-    ported yet."""
+    without an MXU plan (:func:`refuse_without_plan`), and ``ValueError``
+    outside v2's integer domain, which ``resample_phase_cuda.PhaseOps``
+    (v1) takes."""
 
     def __init__(self, cfg: ResampleConfig, device):
-        (ih, iw), (oh, ow) = cfg.in_shape, cfg.out_shape
-        (nv, dv), (nh, dh) = reduced_scale(ih, oh), reduced_scale(iw, ow)
-        drop = cfg.edge_mode == EdgeMode.DROP
-        if drop and cfg.normalize:
-            raise NotImplementedError(
-                "drop edges with normalization need a fused plan (v2's zero "
-                f"pad cannot renormalize); {GATHER}"
-            )
-        if cfg.intermediate_quantize:
-            raise NotImplementedError(
-                f"the quantized intermediate needs a fused plan; {GATHER}"
-            )
-        if drop and cfg.dering:
-            raise NotImplementedError(
-                "drop-edge dering clamps to edge-clamped taps, which v2's zero "
-                f"pad does not have; {GATHER}"
-            )
-        integer = dv == 1 and dh == 1 and nv <= MAX_PHASES and nh <= MAX_PHASES
-        if cfg.dering and (cfg.order != Order.HEIGHT_FIRST or not integer):
-            raise NotImplementedError(
-                "dering without a fused plan needs a height-first integer "
-                f"upscale (N <= {MAX_PHASES}) for v2; {GATHER}"
-            )
-        if not integer:
-            raise NotImplementedError(
-                "outside v2's integer upscales the JAX package runs v1 "
-                "(_fused_kernel), which comes with the next slice "
-                "(ROADMAP queue 2, item 3)"
+        refuse_without_plan(cfg)
+        if not integer_scale(cfg):
+            raise ValueError(
+                f"v2 takes integer upscales (D = 1, N <= {MAX_PHASES}); "
+                "v1 (resample_phase_cuda.PhaseOps) takes this config"
             )
         self.cfg = cfg
         self.plan = plan = shift_plan(cfg)

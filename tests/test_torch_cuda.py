@@ -8,8 +8,10 @@ JAX package's ``tests/conftest.py`` needs JAX, hence ``--noconftest``):
 
 Limits: the fused kernel (every instantiation) fp32 ≤ 1 LSB on ≤ 1% of
 pixels, bf16 ≤ 3 LSB on ≤ 50% (the same plan and rounding points: only
-the order of the fp32 sums differs); kernel 2 identical bytes (the same
-multiply-then-add sequence in the same order).
+the order of the fp32 sums differs); kernel 2 and the v1 kernel
+identical bytes (the same multiply-then-add sequence in the same order);
+each ablation kernel identical bytes to its plain version, and to the
+production kernel where it keeps its semantics.
 """
 
 import numpy as np
@@ -19,7 +21,9 @@ torch = pytest.importorskip("torch")
 
 import lanczos_torch  # noqa: E402
 from lanczos_torch.ops import resample_cuda as rc  # noqa: E402
+from lanczos_torch.ops import resample_phase_cuda as rp  # noqa: E402
 from lanczos_torch.ops import resample_shift_cuda as rs  # noqa: E402
+from lanczos_torch.tools import ablate_fused as af  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 LIMITS = {"fp32": (1, 0.01), "bf16": (3, 0.50)}
@@ -176,3 +180,67 @@ def test_upscale_dering_runs_on_the_kernel(cuda):
         assert rc.launches[kernel] == before + 1
         want = lanczos_torch.upscale(img.cpu(), scale=(2, 1), **kw)
         _within(y.cpu(), want, kw.get("precision", "fp32"))
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("shape,out,kw", [
+    ((24, 40), (36, 60), {}),  # 3/2
+    ((36, 60), (24, 40), {"align": "center"}),  # 2/3
+    ((256, 256), (16, 16), {}),  # 1/16, support 48
+    ((384, 384), (24, 24), {}),  # 1/16 with no fused plan: the tile shrinks, ragged rows
+    ((24, 40), (48, 60), {"edge_mode": "reflect"}),  # 2/1 by 3/2
+    ((25, 41), (37, 61), {}),  # ragged, 37 and 61 phases
+    ((32, 48), (2, 3), {"edge_mode": "reflect"}),  # support 48 > the image
+    ((24, 40), (36, 40), {"edge_mode": "drop", "normalize": False}),  # 3/2 by 1/1
+])
+def test_phase_kernel_equals_plain_version(cuda, shape, out, kw, precision):
+    cfg = lanczos_torch.ResampleConfig.from_profile(
+        "precise", shape, out_shape=out, a=3, precision=precision, **kw
+    )
+    ops = rc.FusedOps(cfg, cuda, variant="v1")
+    assert ops.variant == "v1" and ops.kernel.startswith("phase_resample_")
+    x = np.random.default_rng(6).integers(0, 256, (6,) + shape, dtype=np.uint8)
+    x = torch.from_numpy(x).to(cuda)
+    before = rp.launches[ops.kernel]
+    got = rc.upscale_planar(x, ops)
+    torch.cuda.synchronize()
+    assert rp.launches[ops.kernel] == before + 1
+    want = rp.phase_resample_reference(x, ops.phase.plan, precision, out)
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), rp.phase_resample_reference(x.cpu(), ops.phase.plan,
+                                                              precision, out))
+
+
+def test_upscale_pallas_backend_runs_v1(cuda):
+    img = torch.from_numpy(
+        np.random.default_rng(7).integers(0, 256, (384, 384, 3), dtype=np.uint8)
+    ).to(cuda)
+    before = rp.launches["phase_resample_fp32"]
+    y = lanczos_torch.upscale(img, out_shape=(24, 24), backend="pallas")
+    assert y.is_cuda and y.shape == (24, 24, 3)
+    assert rp.launches["phase_resample_fp32"] == before + 1
+    want = lanczos_torch.upscale(img.cpu(), out_shape=(24, 24), backend="pallas")
+    assert torch.equal(y.cpu(), want)
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("stage", af.STAGES)
+@pytest.mark.parametrize("in_shape,out_shape,tile,cb", [
+    ((36, 64), (72, 128), 16, 32),  # ragged rows; 16-byte aligned output rows
+    ((50, 92), (100, 184), 8, 32),  # ragged rows and blocks, unaligned rows, odd starts
+])
+def test_ablation_kernel_equals_plain_version(cuda, in_shape, out_shape, tile, cb, stage,
+                                              precision):
+    cfg = af.frame_cfg(af.Precision(precision), in_shape, out_shape)
+    ops = rc.FusedOps(cfg, cuda, rc.plan_at(cfg, tile, cb))
+    x = np.random.default_rng(8).integers(0, 256, (6,) + in_shape, dtype=np.uint8)
+    x = torch.from_numpy(x).to(cuda)
+    name = "ablate_fused_" + ("f32" if precision == "fp32" else "") + stage
+    before = af.launches[name]
+    got = af.ablate_call(ops, x, stage)
+    torch.cuda.synchronize()
+    assert af.launches[name] == before + 1
+    want = af.ablation_reference(x, ops.plan, cfg.precision, stage, out_shape)
+    assert torch.equal(got, want)
+    if stage not in af.DIFFERS:
+        assert torch.equal(got, rc.fused_call(ops, x))

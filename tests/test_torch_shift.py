@@ -12,8 +12,10 @@ routing between the port's kernels.
   (multiply, then add, in tap order), and the CUDA kernel reproduces it;
 - the CUDA kernel's host layout (tiles, band through the pad maps, masked
   stores) through a numpy re-enactment of its loops, byte for byte;
-- which kernel ``FusedOps`` picks for each variant and config, and which
-  configs raise, naming their slice (``tests/test_pallas.py:347-370``).
+- which kernel ``FusedOps`` picks for each variant and config (v1 or
+  kernel 2 exactly where ``PallasOps`` picks them), which kernel
+  ``Upscaler(cfg, backend="pallas")`` runs, and which configs raise,
+  naming their slice (``tests/test_pallas.py:347-370``).
 """
 
 import numpy as np
@@ -29,6 +31,7 @@ from lanczos_tpu.ops.resample_pallas import (  # noqa: E402
 )
 
 from lanczos_torch.core.config import ResampleConfig  # noqa: E402
+from lanczos_torch.models.upscaler import Upscaler  # noqa: E402
 from lanczos_torch.ops import resample_cuda as rc  # noqa: E402
 from lanczos_torch.ops import resample_shift_cuda as rs  # noqa: E402
 
@@ -250,15 +253,15 @@ def test_variant_picked(kw, variant, picked, kernel):
     ({"dering": True, "edge_mode": "drop", "normalize": False}, "v2",
      "drop-edge dering", True),
     ({"dering": True, "scale": (3, 2)}, "v2", "integer upscale", True),
-    ({"scale": (3, 2)}, "v2", "v1 .* next slice .*queue 2, item 3", False),
-    ({}, "v1", "next slice .*queue 2, item 3", False),
+    ({"dering": True, "scale": (3, 2)}, "v1", "integer upscale", True),
+    ({"intermediate_quantize": True, "scale": (3, 2)}, "v1", "quantized intermediate", True),
     ({"profile": "hls", "a": 2}, "auto", "queue 1, item 6", True),
     ({"profile": "c_oracle"}, "auto", "queue 1, item 6", True),
 ])
 def test_unported_routes_raise(kw, variant, match, jax_raises):
     """Each raises ``NotImplementedError`` naming what would take it; where
     the JAX package's ``PallasOps`` raises for the same variant, so does
-    the port, and where it does not (v1) the port names the next slice."""
+    the port."""
     cfg = _cfg(**kw)
     with pytest.raises(NotImplementedError, match=match):
         rc.FusedOps(cfg, "cpu", variant=variant)
@@ -273,6 +276,51 @@ def test_unported_routes_raise(kw, variant, match, jax_raises):
                 PallasOps(tpu_cfg, interpret=True, variant=variant)
         else:
             PallasOps(tpu_cfg, interpret=True, variant=variant)
+
+
+@pytest.mark.parametrize("kw,variant", [
+    ({"scale": (3, 2)}, "v2"),  # rational: PallasOps runs v1
+    ({}, "v1"),  # integer: PallasOps runs v2
+    ({"scale": (1, 2)}, "v1"),
+    ({"scale": (4, 1), "align": "center", "edge_mode": "reflect"}, "v1"),
+    ({"scale": (3, 2), "edge_mode": "drop", "normalize": False}, "v2"),
+    ({"scale": (17, 1)}, "v2"),  # N > 16: v1
+    ({"dering": True}, "v1"),
+])
+def test_no_plan_variants_follow_pallas_v2(kw, variant):
+    """``v1`` and ``v2`` both mean "no fused plan": the port runs kernel 2
+    exactly where ``PallasOps(interpret=True, variant=...)`` has ``ops.v2``
+    true, and v1 where it is false."""
+    cfg = _cfg(**kw)
+    ops = rc.FusedOps(cfg, "cpu", variant=variant)
+    tkw = {k: v for k, v in kw.items() if k != "scale"}
+    tpu_cfg = TpuConfig.from_profile("precise", (24, 20), scale=kw.get("scale", (2, 1)),
+                                     a=3, **tkw)
+    pops = PallasOps(tpu_cfg, interpret=True, variant=variant)
+    want = ("v2", "shift_resample") if pops.v2 else ("v1", "phase_resample_fp32")
+    assert (ops.variant, ops.kernel) == want and ops.plan is None
+    assert (ops.shift is not None, ops.phase is not None) == (pops.v2, not pops.v2)
+
+
+@pytest.mark.parametrize("shape,out,a,variant,kernel", [
+    ((288, 480), (18, 30), 3, "v1", "phase_resample_fp32"),  # 1/16: no fused plan
+    ((24, 20), (48, 40), 3, "mxu", "fused_resample_fp32"),  # 2/1: the fused plan
+    ((300, 300), (600, 600), 130, "v2", "shift_resample"),  # integer, no fused plan
+])
+def test_pallas_backend_routes_as_pallas_auto(shape, out, a, variant, kernel):
+    """``Upscaler(cfg, backend="pallas")`` routes as ``PallasOps(variant=
+    "auto")`` on a TPU: the fused kernel where a plan fits, else kernel 2
+    for any integer config, else v1; ``"auto"`` keeps raising where no
+    fused plan fits a linear config."""
+    cfg = ResampleConfig.from_profile("precise", shape, out_shape=out, a=a)
+    up = Upscaler(cfg, backend="pallas", device="cpu")
+    ops = up._ops[torch.device("cpu")]
+    assert (up.backend, up.variant, ops.variant, ops.kernel) == (
+        "pallas", "v1" if variant != "mxu" else "mxu", variant, kernel
+    )
+    if variant != "mxu":
+        with pytest.raises(NotImplementedError, match="no fused plan"):
+            Upscaler(cfg, device="cpu")
 
 
 def test_unknown_variant_raises():

@@ -142,6 +142,32 @@ def test_non_uint8_input_raises(dtype):
         up.planar(torch.zeros((3, 16, 24), dtype=dtype))
 
 
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("shape,out", [
+    ((288, 480), (18, 30)),  # 1/16 thumbnail: no fused plan, v1 in both packages
+    ((24, 40), (36, 60)),  # 3/2: the port's fused plan; the JAX CPU run takes v1
+    ((48, 40), (48, 60)),  # 1/1 by 3/2
+])
+def test_pallas_backend_matches_tpu_pallas(shape, out, precision):
+    """``upscale(..., backend="pallas")`` against the JAX package's
+    ``Upscaler(cfg, backend="pallas")`` (fp32, its Pallas kernels in
+    interpret mode) on the same seeded image."""
+    img = _img((2,) + shape + (3,), seed=7)
+    got = lanczos_torch.upscale(torch.from_numpy(img), out_shape=out, a=3,
+                                precision=precision, backend="pallas")
+    tpu_cfg = lanczos_tpu.ResampleConfig.from_profile("precise", shape, out_shape=out, a=3)
+    want = np.asarray(lanczos_tpu.Upscaler(tpu_cfg, backend="pallas")(img))
+    _within(got.numpy(), want, precision)
+
+
+@pytest.mark.parametrize("dtype", [torch.uint16, torch.float32])
+def test_pallas_backend_refuses_non_uint8(dtype):
+    cfg = lanczos_torch.ResampleConfig.from_profile("precise", (288, 480), out_shape=(18, 30))
+    up = lanczos_torch.Upscaler(cfg, backend="pallas", device="cpu")
+    with pytest.raises(NotImplementedError, match="queue 1, items 3 and 5"):
+        up(torch.zeros((288, 480, 3), dtype=dtype))
+
+
 def test_unported_backend_raises():
     cfg = lanczos_torch.ResampleConfig.from_profile("precise", (16, 24), scale=(2, 1))
     with pytest.raises(NotImplementedError, match="queue 1"):
