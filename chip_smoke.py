@@ -37,27 +37,45 @@ not 0:
 9. times of the v1 kernel and its plain version on those three;
 10. the fused kernel's ablation harness (``lanczos_torch.tools.ablate_fused``)
    over every variant at 4K→8K, 12 planes: each against its plain version
-   and the production kernel's bytes, and timed beside it.
+   and the production kernel's bytes, and timed beside it;
+11. the bit-exact profiles on the card: ``hls`` and ``c_oracle`` at small
+   seeds drawn as ``hwcert.py`` draws its exact seeds (plus ``hls`` at
+   P = 6 and 10), each byte-equal to its ``lanczos_torch.ref`` oracle (run
+   in worker processes meanwhile); at 4K→8K, ``c_oracle`` a=3 byte-equal
+   to ``c_oracle_upscale`` and ``hls`` a=2 byte-equal to the same module's
+   run on the host CPU;
+12. the float paths at full width, each against a float64 gather:
+   ``backend="xla"`` uint8 fp32 and bf16 at 4K→8K; float32 and uint16
+   input at 4K→8K through ``auto`` (the strided path); float32 1080×1920 →
+   1126×2001 through ``auto`` (the block path), also with TF32 enabled,
+   which must not change a byte;
+13. times of every new path at full width through ``Upscaler``, beside the
+   fused kernel on the same 4K→8K frame.
 
 Limits: fp32 ≤ 1 LSB on ≤ 1% of pixels (the quantized intermediate ≤ 2
 LSB: one flipped intermediate value spreads over the taps); bf16 ≤ 3 LSB
 on ≤ 50% of pixels; kernel 2, the v1 kernel and the ablation kernels and
-their plain versions identical bytes.  The last lines are one JSON object
-of the kernels and one of the device.
+their plain versions identical bytes; the bit-exact profiles identical
+bytes; float output |Δ| ≤ 1e-3 (values 0–255).  The last lines are one
+JSON object of the kernels and one of the device.
 """
 
 from __future__ import annotations
 
 import json
+import multiprocessing
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
 
-LIMITS = {"fp32": (1, 0.01), "bf16": (3, 0.50), "quant": (2, 0.01), "exact": (0, 0.0)}
+LIMITS = {"fp32": (1, 0.01), "bf16": (3, 0.50), "quant": (2, 0.01), "exact": (0, 0.0),
+          "float": (1e-3, 1.0)}
 FRAME = (2160, 3840)  # the main path's input, 4K; output 2x each way
+# a rational scale (563/540 by 667/640) only the block path takes
+BLOCK_CASE = ((1080, 1920), (1126, 2001))
 FP32_PEAK_TFLOPS = 67.0  # H100 SXM, SIMT fp32, NVIDIA's data sheet at 700 W
 T0 = time.perf_counter()
 
@@ -66,15 +84,18 @@ def compare(name: str, got, want, precision: str) -> tuple[int, float]:
     """Max |Δ| and the share of differing pixels; raises past the limits."""
     got = got.detach().cpu().numpy() if hasattr(got, "detach") else got
     want = want.detach().cpu().numpy() if hasattr(want, "detach") else want
-    if got.shape != want.shape or got.dtype != want.dtype:
+    floats = precision == "float"  # float32 output against float64
+    if got.shape != want.shape or (
+        got.dtype != want.dtype if not floats else got.dtype != np.float32
+    ):
         raise AssertionError(
             f"{name}: {got.shape} {got.dtype} vs {want.shape} {want.dtype}"
         )
-    d = np.abs(got.astype(np.int32) - want.astype(np.int32))
-    mx, frac = int(d.max()), float((d > 0).mean())
+    d = np.abs(got.astype(np.float64 if floats else np.int64) - want)
+    mx, frac = (float if floats else int)(d.max()), float((d > 0).mean())
     lim, frac_lim = LIMITS[precision]
     ok = mx <= lim and frac <= frac_lim
-    print(f"  {name}: max|d|={mx} differing={frac:.6f} "
+    print(f"  {name}: max|d|={mx:g} differing={frac:.6f} "
           f"(limit {lim} on {frac_lim}) {'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         raise AssertionError(f"{name} outside the {precision} limits")
@@ -83,9 +104,10 @@ def compare(name: str, got, want, precision: str) -> tuple[int, float]:
 
 def gather_f64(img: np.ndarray, cfg) -> np.ndarray:
     """Float64 separable gather from the port's banded_weights: the
-    (H, W, C) uint8 reference of a precise config, in its pass order, with
-    its dering clamp (each pass to its two central taps) and its quantized
-    intermediate."""
+    (H, W, C) reference of a precise config, in its pass order, with its
+    dering clamp (each pass to its two central taps) and its quantized
+    intermediate; trunc-clipped to the input's integer type (uint8 or
+    uint16), float64 for float input."""
     from lanczos_torch.core.weights import banded_weights
 
     (ih, iw), (oh, ow) = cfg.in_shape, cfg.out_shape
@@ -119,7 +141,10 @@ def gather_f64(img: np.ndarray, cfg) -> np.ndarray:
         mid = np.where(np.abs(mid - near) < 1e-9, near, mid)
         mid = np.trunc(np.clip(mid, 0.0, 255.0))
     out = apply(mid, *second)
-    return np.trunc(np.clip(out, 0.0, 255.0)).astype(np.uint8)
+    if img.dtype.kind == "f":
+        return out
+    top = float(np.iinfo(img.dtype).max)
+    return np.trunc(np.clip(out, 0.0, top)).astype(img.dtype)
 
 
 def plain_version(x, ops):
@@ -183,6 +208,169 @@ def _plan_with(cfg, tile: int, cb: int):
     if plan is None:
         raise AssertionError(f"no plan at tile {tile}, cb {cb} for {cfg}")
     return plan
+
+
+def exact_seeds() -> list:
+    """``(name, profile, shape, scale, a, bit_precision, image)`` of the
+    bit-exact seeds, drawn as ``hwcert.py``'s ``run_seed_exact`` draws
+    them (odd seeds ``hls``, even ``c_oracle``), plus two ``hls`` seeds at
+    P = 6 and P = 10."""
+    out = []
+    for seed, bp in [(s, 8) for s in range(10)] + [(11, 6), (13, 10)]:
+        rng = np.random.default_rng(10_000 + seed)
+        profile = "hls" if seed % 2 else "c_oracle"
+        n, d = [(2, 1), (3, 1), (4, 1), (3, 2)][rng.integers(4)]
+        a = 2 if profile == "hls" else int(rng.integers(2, 4))
+        h = int(rng.integers(6, 20)) * 8  # *8 keeps h, w divisible by d
+        w = int(rng.integers(6, 20)) * 8
+        img = rng.integers(0, 256, size=(h, w, 3), dtype=np.uint8)
+        name = f"{profile} seed {seed} {h}x{w} {n}/{d} a={a}" + (
+            f" P={bp}" if profile == "hls" else "")
+        out.append((name, profile, (h, w), (n, d), a, bp, img))
+    return out
+
+
+def exact_oracle(profile: str, img: np.ndarray, out: tuple, a: int, bp: int) -> np.ndarray:
+    """The host oracle of a bit-exact profile (runs in a worker process)."""
+    if profile == "hls":
+        from lanczos_torch.ref.hls_sim import hls_stream_upscale
+
+        return hls_stream_upscale(img, out[0], out[1], a, bp)
+    from lanczos_torch.ref.oracle import c_oracle_upscale
+
+    return c_oracle_upscale(img, out[0], out[1], a)
+
+
+def bit_exact_and_float_paths(img: np.ndarray, x, smi: str) -> None:
+    """Phases 11–13: the bit-exact profiles, the float paths and their
+    times, on ``x`` (``img`` on the card)."""
+    import torch
+
+    import lanczos_torch
+    from lanczos_torch.utils.timing import cuda_time_ms
+
+    # ---- 11. the bit-exact profiles
+    print("== 11. bit-exact profiles on the card vs the host oracles", flush=True)
+    from lanczos_torch.models.upscaler import Upscaler, _shift_eligible
+    from lanczos_torch.ref._native import native_lib
+    from lanczos_torch.ref.oracle import c_oracle_upscale
+
+    print(f"  c_oracle_upscale's height pass runs its "
+          f"{'C' if native_lib() is not None else 'NumPy'} loop", flush=True)
+    seeds = exact_seeds()
+    big_out = (2 * FRAME[0], 2 * FRAME[1])
+    cfg_c = lanczos_torch.ResampleConfig.from_profile("c_oracle", FRAME, scale=(2, 1), a=3)
+    cfg_h = lanczos_torch.ResampleConfig.from_profile("hls", FRAME, scale=(2, 1), a=2)
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(8, mp_context=multiprocessing.get_context("spawn")) as procs, \
+            ThreadPoolExecutor(2) as threads:
+        refs = [
+            procs.submit(exact_oracle, prof, im, (sh[0] * sc[0] // sc[1], sh[1] * sc[0] // sc[1]),
+                         a, bp)
+            for _, prof, sh, sc, a, bp, im in seeds
+        ]
+        big_c = threads.submit(c_oracle_upscale, img, *big_out, 3)
+        big_h = threads.submit(
+            lambda: Upscaler(cfg_h, device="cpu")(torch.from_numpy(img)).numpy())
+        for (name, prof, sh, sc, a, bp, im), ref in zip(seeds, refs):
+            cfg = lanczos_torch.ResampleConfig.from_profile(
+                prof, sh, scale=sc, a=a, bit_precision=bp)
+            up = Upscaler(cfg)
+            y = up(torch.from_numpy(im).to(x.device))
+            if y.device != x.device or y.dtype != torch.uint8:
+                raise AssertionError(f"{name}: got {y.dtype} on {y.device}")
+            compare(f"{name} ({up.path}) vs {'hls_sim' if prof == 'hls' else 'c_oracle'}",
+                    y, ref.result(), "exact")
+        for name, cfg, ref in (("c_oracle a=3", cfg_c, big_c),
+                               ("hls a=2", cfg_h, big_h)):
+            torch.cuda.reset_peak_memory_stats()
+            up = Upscaler(cfg)
+            y = up(x)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            if y.shape != (*big_out, 3) or y.dtype != torch.uint8 or y.device != x.device:
+                raise AssertionError(f"{name}: got {tuple(y.shape)} {y.dtype} {y.device}")
+            want = "c_oracle_upscale" if cfg.c_faithful else "the same module on the host CPU"
+            compare(f"{name} 4K->8K ({up.path}, peak {peak:.2f} GiB) vs {want}", y,
+                    ref.result(), "exact")
+            del y
+    print(f"  host oracles (worker processes and threads): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+
+    # ---- 12. the float paths at full width
+    print("== 12. float paths at full width vs float64 gathers", flush=True)
+    rng12 = np.random.default_rng(12)
+    img_f = (rng12.random(FRAME + (3,), dtype=np.float32) * 255).astype(np.float32)
+    img_16 = rng12.integers(0, 65536, FRAME + (3,), dtype=np.uint16)
+    img_1080 = (rng12.random(BLOCK_CASE[0] + (3,), dtype=np.float32) * 255).astype(np.float32)
+    paths12 = [  # name, input, overrides, backend, limits, reference key
+        ("xla fp32 uint8 4K->8K", img, dict(scale=(2, 1)), "xla", "fp32", "u8"),
+        ("xla bf16 uint8 4K->8K", img, dict(scale=(2, 1), precision="bf16"), "xla", "bf16",
+         "u8"),
+        ("float32 4K->8K", img_f, dict(scale=(2, 1)), "auto", "float", "f32"),
+        ("uint16 4K->8K", img_16, dict(scale=(2, 1)), "auto", "fp32", "u16"),
+        ("float32 1080x1920->1126x2001", img_1080, dict(out_shape=BLOCK_CASE[1]), "auto",
+         "float", "f1080"),
+    ]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(4) as threads:
+        refs = {}
+        for _, im, kw, _, _, key in paths12:
+            if key not in refs:  # one fp32 reference serves fp32 and bf16
+                kw = {k: v for k, v in kw.items() if k != "precision"}
+                refs[key] = threads.submit(gather_f64, im, lanczos_torch.ResampleConfig
+                                           .from_profile("precise", im.shape[:2], a=3, **kw))
+        timed = []
+        for name, im, kw, backend, lim, key in paths12:
+            cfg = lanczos_torch.ResampleConfig.from_profile("precise", im.shape[:2], a=3, **kw)
+            up = Upscaler(cfg, backend=backend)
+            took = up.path if up.path != "cuda" or im.dtype == np.uint8 else (
+                "shift_xla" if _shift_eligible(cfg) else "block")
+            xin = torch.from_numpy(im).to(x.device)
+            y = up(xin)
+            torch.cuda.synchronize()
+            want_dt = torch.float32 if im.dtype.kind == "f" else getattr(torch, im.dtype.name)
+            if y.device != x.device or y.dtype != want_dt:
+                raise AssertionError(f"{name}: got {y.dtype} on {y.device}")
+            compare(f"{name} (backend {backend!r} took {took}) vs float64 gather", y,
+                    refs[key].result(), lim)
+            if took == "block":
+                # TF32 on: the block path's fp32 products are float64 contractions
+                torch.backends.cuda.matmul.allow_tf32 = True
+                try:
+                    y32 = up(xin)
+                finally:
+                    torch.backends.cuda.matmul.allow_tf32 = False
+                if not torch.equal(y32, y):
+                    raise AssertionError(f"{name}: TF32 changed the block path's bytes")
+                print(f"  {name}: identical with TF32 enabled", flush=True)
+                del y32
+            timed.append((name, up, xin, took))
+            del y
+    print(f"  float64 numpy gather references (4, in parallel): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- 13. times of the new paths
+    print("== 13. times of the new paths at full width through Upscaler (CUDA events, "
+          f"mean of 20 after 3 warm-up) [{smi}]", flush=True)
+    u8 = [("fused kernel fp32 (auto)", dict(), "auto"),
+          ("fused kernel bf16 (auto)", dict(precision="bf16"), "auto"),
+          ("shift_xla fp32 uint8", dict(), "shift_xla"),
+          ("block fp32 uint8", dict(), "block"),
+          ("block bf16 uint8", dict(precision="bf16"), "block")]
+    timed = [
+        (f"{name} 4K->8K", up, x, up.path)
+        for name, kw, backend in u8
+        for up in [Upscaler(lanczos_torch.ResampleConfig.from_profile(
+            "precise", FRAME, scale=(2, 1), a=3, **kw), backend)]
+    ] + timed + [("c_oracle a=3 4K->8K", Upscaler(cfg_c), x, "c_exact"),
+                 ("hls a=2 4K->8K", Upscaler(cfg_h), x, "hls")]
+    for name, up, xin, took in timed:
+        ms = cuda_time_ms(up, xin)
+        print(f"  {name} ({took}): {ms:.4f} ms/frame", flush=True)
+        torch.cuda.empty_cache()
+    del timed
 
 
 def main() -> None:
@@ -619,6 +807,8 @@ def main() -> None:
             "plain_ms": r["plain_ms"],
         })
     del himg
+
+    bit_exact_and_float_paths(img, x, smi)
 
     print(f"  chip_smoke took {time.perf_counter() - T0:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

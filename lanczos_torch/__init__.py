@@ -1,19 +1,23 @@
 """lanczos_torch — the PyTorch/CUDA port of ``lanczos_tpu`` for one NVIDIA
 H100.
 
-It imports torch and never JAX.  It covers uint8 ``precise``-family
-upscales (fp32 or bf16; linear, with the FSR dering clamp, with the
-uint8-quantized intermediate, either pass order) through :func:`upscale`
-/ :class:`Upscaler`, on hand-written CUDA kernels built with ``nvcc`` at
-first use: the fused kernel (``csrc/fused_resample.cu``) and, for
-integer-scale dering without a fused plan, the shift-FMA kernel
-(``csrc/shift_resample.cu``).  Every other config raises
-``NotImplementedError`` naming its slice.
+It imports torch and never JAX.  :func:`upscale` / :class:`Upscaler` run
+the three profiles (``precise``, ``hls``, ``c_oracle``), every
+single-device backend of the JAX package (``auto``, ``pallas`` and the
+port's ``cuda``, ``shift_xla``, ``block``, ``xla``, ``c_exact``, ``ref``)
+and its dtype contract (uint8, uint16 and float input).  The uint8
+``precise`` paths run on hand-written CUDA kernels built with ``nvcc`` at
+first use (``csrc/``); the float paths and the bit-exact profiles run as
+PyTorch tensor ops on the input's device.  Streaming, video, the
+multi-device paths (``mesh=``), the CLI and the image codecs are later
+slices: ``mesh=`` raises ``NotImplementedError`` naming its slice.
 
     - ``lanczos_torch.core``:   configuration, filter kernels, weight tables
       (copies of ``lanczos_tpu.core``'s framework-neutral modules)
+    - ``lanczos_torch.ref``:    the host NumPy oracles (copies of
+      ``lanczos_tpu.ref``)
     - ``lanczos_torch.ops``:    the plans, the kernels' wrappers, their
-      plain PyTorch versions and the routing between them
+      plain PyTorch versions, the tensor-op paths and the routing
     - ``lanczos_torch.models``: :class:`Upscaler` and :func:`upscale`
     - ``lanczos_torch.utils``:  metrics and CUDA-event timing
 """

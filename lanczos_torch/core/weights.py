@@ -7,7 +7,7 @@ distinct values, so 1-D resampling ``out = R · in`` uses a banded matrix R
 here runs host-side in float64 NumPy at build time; the device only ever
 sees small dense tables.
 
-Two builders, copied from ``lanczos_tpu.core.weights`` so that the port
+Three builders, copied from ``lanczos_tpu.core.weights`` so that the port
 imports no JAX (``tests/test_torch_core.py`` holds them equal to the
 originals):
 
@@ -16,9 +16,11 @@ originals):
 - :func:`phase_table` / :class:`PhaseWeights` — the N-phase compressed form used by the fast
   strided-gather / Pallas paths (interior rows only; edges are corrected by
   the banded form).
-
-The HLS fixed-point tables (``hls_lut``, ``hls_schedule``) come with the
-port's ``hls`` profile.
+- :func:`hls_schedule` / :func:`hls_lut` — bit-faithful reconstruction of
+  the reference HLS path's streaming counters (``worker.cpp:138-155``,
+  ``170-198``, ``239-275``) and its fixed-point ROM (``kernel.cpp:40-59``),
+  flattened into static gather indices so the whole "cyclic buffer + step
+  predicate" machine becomes a precomputed index table.
 """
 
 from __future__ import annotations
@@ -231,3 +233,144 @@ class PhaseWeights:
         fl = (2 * p * d + aoff) // (2 * n)
         off = fl - a + 1
         return cls(n=n, d=d, a=a, table=w, off=off.astype(np.int32))
+
+
+# ---------------------------------------------------------------------------
+# HLS-faithful machinery
+# ---------------------------------------------------------------------------
+
+
+def hls_lut(a: int, n: int, bit_precision: int, mode: str = "fp64") -> np.ndarray:
+    """Fixed-point Lanczos ROM, int32 values in units of 2^-P.
+
+    Reconstructs ``init_lanczos_kernel`` (``kernel.cpp:40-45``): LUT[i] =
+    L(i/N) for i in [0, a·N), LUT[a·N] = 0, quantized to ``kernel_t =
+    ap_fixed<8+P,8>`` (truncation toward −∞, the ap_fixed AP_TRN default).
+
+    ``mode="fp64"`` evaluates L in float64 at the exact rational i/N then
+    quantizes once.  ``mode="hls"`` additionally quantizes the argument to
+    the kernel_t grid first (the reference computes ``(kernel_t)i/SCALE_N``
+    in fixed point).  hls::sinpi's internal precision is not reproducible
+    without the Vivado libraries; float64 evaluation of sin is used — the
+    difference is below one LUT quantum in practice.
+    """
+    P = bit_precision
+    scale = 1 << P
+    i = np.arange(a * n + 1, dtype=np.float64)
+    if mode == "hls":
+        x = np.floor(i / n * scale) / scale  # (kernel_t)i / SCALE_N, AP_TRN
+    elif mode == "fp64":
+        x = i / n
+    else:
+        raise ValueError(f"unknown hls_lut mode {mode!r}")
+    with np.errstate(invalid="ignore", divide="ignore"):
+        w = np.where(
+            x == 0.0,
+            1.0,
+            (a / np.pi**2) * np.sin(np.pi * x) * np.sin(np.pi * x / a) / (x * x),
+        )
+    q = np.floor(w * scale).astype(np.int32)
+    q[a * n] = 0
+    return q
+
+
+@dataclasses.dataclass(frozen=True)
+class HLSSchedule:
+    """Flattened streaming schedule of one HLS worker axis.
+
+    For each output position ``y`` (of ``out_size``), the 2a-tap window the
+    reference's cyclic buffer / shift registers would hold:
+
+    - ``eff_idx[y, j]``: source index in [0, in_size) after the zero-pre-roll
+      (top/left) and saturate/replicate (bottom/right) edge behavior.
+    - ``valid[y, j]``: False where the window slot holds a pre-roll zero.
+    - ``lut_idx[y, j]``: index into the fixed-point ROM, as the hardware
+      computes it from its *nominal* counter (``|y·D − (in_idx−2a+j)·N|``,
+      ``kernel.cpp:56`` via ``lanczos.cpp:29,47``), clipped to the ROM size.
+    - ``lut_overflow``: True if any nominal index exceeded the ROM (the
+      quantized step predicate drifting off the ideal pattern — a latent
+      reference bug for scales whose 1/scale is inexact in P fractional
+      bits; the ROM read would be out of bounds in the reference).
+    """
+
+    in_size: int
+    out_size: int
+    a: int
+    eff_idx: np.ndarray  # (out, 2a) int32
+    valid: np.ndarray  # (out, 2a) bool
+    lut_idx: np.ndarray  # (out, 2a) int32
+    lut_overflow: bool
+
+
+def hls_schedule(
+    in_size: int, out_size: int, a: int, bit_precision: int
+) -> HLSSchedule:
+    """Simulate the worker counters once on the host, O(out_size).
+
+    Reproduces, exactly and in one place:
+    - ``initialize``: N_ZEROS = a−1 pre-roll zeros then rows 0..a
+      (``worker.cpp:170-198`` with offset=0, ``worker.cpp:249-275``).
+    - the quantized step predicate ``frac(q·(y+1)) < q`` with
+      ``q = ⌊2^P·D/N⌋`` (``worker.cpp:140,234``; fractional_t is
+      ap_ufixed<P,0> and num_el_t(1/SCALE) truncates, so the comparison is
+      pure integer arithmetic mod 2^P).
+    - saturate-push / shift-down replication of the newest element at the
+      bottom/right edge (``cyclic_buffer.h:30-42``, ``worker.cpp:244``).
+    """
+    n, d = reduced_scale(in_size, out_size)
+    if n < d:
+        # q >= 2^P degenerates the step predicate (always true): the
+        # window would advance one row per output and silently return
+        # top-of-image garbage; the reference HLS design is upscale-only
+        raise ValueError("the HLS stream schedule is upscale-only")
+    P = bit_precision
+    mask = (1 << P) - 1
+    q = (d << P) // n  # num_el_t(1/SCALE) with AP_TRN truncation
+    taps = 2 * a
+
+    # window after initialize: a−1 zeros (sentinel −1) then rows 0..a
+    win = [-1] * (a - 1) + list(range(min(a + 1, in_size)))
+    # (if the image is shorter than a+1 rows the stream would underflow in
+    # the reference; clamp the pre-roll reads to what exists + replicate)
+    while len(win) < taps:
+        win.append(win[-1] if win and win[-1] >= 0 else -1)
+    in_idx = min(a + 1, in_size)
+
+    eff = np.empty((out_size, taps), dtype=np.int32)
+    valid = np.empty((out_size, taps), dtype=bool)
+    lut = np.empty((out_size, taps), dtype=np.int64)
+    for y in range(out_size):
+        # kernel_vals computed from the nominal counter before exec
+        b = in_idx - taps
+        lut[y] = np.abs(y * d - (b + np.arange(taps)) * n)
+        w = np.array(win)
+        valid[y] = w >= 0
+        eff[y] = np.maximum(w, 0)
+        # step predicate for the *next* output position
+        if ((q * (y + 1)) & mask) < q:
+            if in_idx < in_size:
+                win = win[1:] + [in_idx]
+            else:
+                win = win[1:] + [win[-1]]  # saturate: replicate newest
+            in_idx += 1
+
+    rom_max = a * n
+    overflow = bool((lut > rom_max).any())
+    lut_idx = np.clip(lut, 0, rom_max).astype(np.int32)
+    return HLSSchedule(
+        in_size=in_size,
+        out_size=out_size,
+        a=a,
+        eff_idx=eff,
+        valid=valid,
+        lut_idx=lut_idx,
+        lut_overflow=overflow,
+    )
+
+
+def fixed_point_weights(
+    op: BandedOperator, bit_precision: int
+) -> np.ndarray:
+    """Quantize a banded operator's weights to int32 units of 2^-P (AP_TRN)."""
+    scale = 1 << bit_precision
+    return np.floor(op.weights * scale).astype(np.int32)

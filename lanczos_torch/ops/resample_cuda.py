@@ -546,8 +546,9 @@ class FusedOps:
             raise ValueError(f"unknown variant {variant!r}; one of {VARIANTS}")
         if cfg.precision == Precision.FIXED or cfg.c_faithful:
             raise NotImplementedError(
-                "the bit-exact profiles (hls, c_oracle) come with their own "
-                "slice (ROADMAP queue 1, item 6)"
+                "the bit-exact profiles run on their own integer paths, as "
+                "PallasOps refuses them: hls on ops.fixed_point.HLSOps, "
+                "c_oracle on ops.c_exact.CExactOps (Upscaler routes both)"
             )
         self.cfg = cfg
         self.device = torch.device(device)
@@ -603,13 +604,6 @@ class FusedOps:
                 if k in lay
             }
             self.args = {k: v for k, v in lay.items() if isinstance(v, int)}
-
-    def table_tensors(self) -> list:
-        """The tensors of weights and tables this ops holds on its device."""
-        if self.tr_ops is not None:
-            return self.tr_ops.table_tensors()
-        held = next(o for o in (self.shift, self.phase, self) if o is not None).tensors
-        return list((held or {}).values())
 
 
 def make_fused_ops(cfg: ResampleConfig, plan: FusedPlan, device="cuda") -> FusedOps:

@@ -46,7 +46,7 @@ launches = {"shift_resample": 0}
 MAX_PHASES = 16  # PallasOps' v2 domain: D = 1 and N <= 16 on both axes
 _PAD_MODE = {EdgeMode.CLAMP: "edge", EdgeMode.DROP: "constant",
              EdgeMode.REFLECT: "reflect"}
-GATHER = "the gather path takes it (ROADMAP queue 1, item 3)"
+GATHER = "the gather path takes it (backend='xla'; 'auto' routes it off the kernels)"
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

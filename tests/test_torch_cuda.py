@@ -11,7 +11,11 @@ pixels, bf16 ≤ 3 LSB on ≤ 50% (the same plan and rounding points: only
 the order of the fp32 sums differs); kernel 2 and the v1 kernel
 identical bytes (the same multiply-then-add sequence in the same order);
 each ablation kernel identical bytes to its plain version, and to the
-production kernel where it keeps its semantics.
+production kernel where it keeps its semantics.  The tensor-op paths: the
+bit-exact profiles identical bytes on CUDA and on the CPU (integer
+arithmetic); the gather, strided and block paths on CUDA against the CPU
+under the same limits (float output |Δ| ≤ 1e-3), block identical with
+TF32 allowed (it contracts fp32 in float64).
 """
 
 import numpy as np
@@ -244,3 +248,58 @@ def test_ablation_kernel_equals_plain_version(cuda, in_shape, out_shape, tile, c
     assert torch.equal(got, want)
     if stage not in af.DIFFERS:
         assert torch.equal(got, rc.fused_call(ops, x))
+
+
+@pytest.mark.parametrize("profile,shape,scale,kw", [
+    ("hls", (48, 40), (2, 1), {"a": 2}),
+    ("hls", (40, 56), (3, 2), {"a": 2, "bit_precision": 10}),
+    ("hls", (24, 32), (3, 1), {"a": 3, "bit_precision": 6}),
+    ("c_oracle", (48, 40), (2, 1), {"a": 3}),
+    ("c_oracle", (36, 44), (3, 2), {"a": 2}),
+    ("c_oracle", (44, 40), (5, 4), {"a": 3}),
+])
+def test_bit_exact_profiles_cuda_equal_cpu(cuda, profile, shape, scale, kw):
+    img = torch.from_numpy(np.random.default_rng(9).integers(
+        0, 256, (2,) + shape + (3,), dtype=np.uint8))
+    y = lanczos_torch.upscale(img.to(cuda), scale=scale, profile=profile, **kw)
+    assert y.is_cuda and y.dtype == torch.uint8
+    assert torch.equal(y.cpu(), lanczos_torch.upscale(img, scale=scale, profile=profile, **kw))
+
+
+@pytest.mark.parametrize("backend", ["xla", "shift_xla", "block"])
+@pytest.mark.parametrize("precision,kw,dtype", [
+    ("fp32", {}, np.uint8),
+    ("fp32", {"dering": True, "edge_mode": "reflect", "align": "center"}, np.uint8),
+    ("bf16", {}, np.uint8),
+    ("fp32", {}, np.float32),
+    ("fp32", {}, np.uint16),
+])
+def test_float_paths_cuda_vs_cpu(cuda, backend, precision, kw, dtype):
+    rng = np.random.default_rng(10)
+    shape = (36, 60)
+    img = (rng.random(shape + (3,), dtype=np.float32) * 255 if dtype == np.float32
+           else rng.integers(0, np.iinfo(dtype).max + 1, shape + (3,), dtype=dtype))
+    x = torch.from_numpy(img)
+    args = dict(scale=(3, 2), backend=backend, precision=precision, **kw)
+    y = lanczos_torch.upscale(x.to(cuda), **args)
+    want = lanczos_torch.upscale(x, **args)
+    assert y.is_cuda and y.dtype == want.dtype
+    if dtype == np.float32:
+        assert float((y.cpu() - want).abs().max()) <= 1e-3
+    else:
+        _within(y.cpu(), want, precision)
+
+
+def test_block_ignores_tf32(cuda):
+    """The block path's fp32 products stay exact with TF32 allowed globally."""
+    cfg = lanczos_torch.ResampleConfig.from_profile("precise", (108, 192), out_shape=(113, 200))
+    up = lanczos_torch.Upscaler(cfg, backend="block", device=cuda)
+    x = torch.from_numpy(np.random.default_rng(11).random((108, 192, 3), dtype=np.float32)
+                         * 255).to(cuda)
+    exact = up(x)
+    torch.set_float32_matmul_precision("high")
+    try:
+        tf32 = up(x)
+    finally:
+        torch.set_float32_matmul_precision("highest")
+    assert torch.equal(tf32, exact)

@@ -255,8 +255,8 @@ def test_variant_picked(kw, variant, picked, kernel):
     ({"dering": True, "scale": (3, 2)}, "v2", "integer upscale", True),
     ({"dering": True, "scale": (3, 2)}, "v1", "integer upscale", True),
     ({"intermediate_quantize": True, "scale": (3, 2)}, "v1", "quantized intermediate", True),
-    ({"profile": "hls", "a": 2}, "auto", "queue 1, item 6", True),
-    ({"profile": "c_oracle"}, "auto", "queue 1, item 6", True),
+    ({"profile": "hls", "a": 2}, "auto", "own integer paths", True),
+    ({"profile": "c_oracle"}, "auto", "own integer paths", True),
 ])
 def test_unported_routes_raise(kw, variant, match, jax_raises):
     """Each raises ``NotImplementedError`` naming what would take it; where
@@ -310,8 +310,9 @@ def test_no_plan_variants_follow_pallas_v2(kw, variant):
 def test_pallas_backend_routes_as_pallas_auto(shape, out, a, variant, kernel):
     """``Upscaler(cfg, backend="pallas")`` routes as ``PallasOps(variant=
     "auto")`` on a TPU: the fused kernel where a plan fits, else kernel 2
-    for any integer config, else v1; ``"auto"`` keeps raising where no
-    fused plan fits a linear config."""
+    for any integer config, else v1.  Where no fused plan fits a linear
+    config, ``"auto"`` leaves the kernels for the JAX package's fallback
+    chain (here the strided path) and ``"cuda"`` keeps raising."""
     cfg = ResampleConfig.from_profile("precise", shape, out_shape=out, a=a)
     up = Upscaler(cfg, backend="pallas", device="cpu")
     ops = up._ops[torch.device("cpu")]
@@ -319,8 +320,11 @@ def test_pallas_backend_routes_as_pallas_auto(shape, out, a, variant, kernel):
         "pallas", "v1" if variant != "mxu" else "mxu", variant, kernel
     )
     if variant != "mxu":
+        assert Upscaler(cfg, device="cpu").backend == "shift_xla"
+        assert TpuUpscaler(TpuConfig.from_profile("precise", shape, out_shape=out, a=a)
+                           ).backend == "shift_xla"
         with pytest.raises(NotImplementedError, match="no fused plan"):
-            Upscaler(cfg, device="cpu")
+            Upscaler(cfg, backend="cuda", device="cpu")
 
 
 def test_unknown_variant_raises():
