@@ -1,20 +1,25 @@
-// Ablation copies of the linear fused kernel, uint8 planar -> uint8 planar, for Hopper
-// (sm_90a): each deletes or restructures one stage of fused_resample.cu's kernel, so that
-// timing it against the production kernel shows what that stage costs on the card.
+// The dense fused kernel and its ablation copies, uint8 planar -> uint8 planar, for Hopper
+// (sm_90a): the linear fused resample as the TPU kernel shaped it, both passes dense
+// products over per-tile windows (about 90 multiply-adds a pixel at 2x where 9 are
+// needed), and variants that each delete or restructure one stage, so that timing one
+// against `full` shows what that stage costs on the card.  `full` was the production
+// kernel until fused_resample.cu became band-sparse; it stays here so that every run
+// times the earlier design beside the new one.
 //
 // Replaces tools/ablate_mxu.py::make_kernel (the per-tile kernel below) and
 // ::make_swpipe_kernel (the row-walk kernel below), the TPU's ablation probes of
-// _fused_kernel_mxu.  The production instantiations stay in fused_resample.cu and do not
-// change; both files share the register-tiled product (fused_tile.cuh), so a variant
-// runs the production arithmetic in every stage it keeps.
+// _fused_kernel_mxu.  Both kernels share the register-tiled product (fused_tile.cuh), so a
+// variant runs `full`'s arithmetic in every stage it keeps.  What bounds them: not
+// device memory (124.4 MB a 4K->8K frame, 0.037 ms) but the serialized load, vertical
+// and horizontal phases of blocks at 3 an SM, with the dense products behind (PERF.md).
 //
-// Per-tile kernel, one block per (column block, row tile, plane) as in production:
-//   kFull     the production stages (fp32 or bf16 weights): band, vertical, horizontal;
+// Per-tile kernel, one block per (column block, row tile, plane):
+//   kFull     the dense stages (fp32 or bf16 weights): band, vertical, horizontal;
 //   kNotrunc  the store's float clamp and truncating conversion replaced by one
 //             saturating conversion and an integer clamp (TPU notrunc; same bytes);
 //   kBfmid    the intermediate held in shared memory as bf16 (rounded there in both
-//             precisions; the bf16 production path already rounds it, so with bf16
-//             weights only its width changes);
+//             precisions; the bf16 path already rounds it, so with bf16 weights only
+//             its width changes);
 //   kManout   the output tile staged in shared memory and written with 16-byte stores
 //             (TPU manout, a manual output DMA; same bytes);
 //   kNovert   the vertical products deleted: intermediate row r copies band row r % kv;
@@ -27,12 +32,12 @@
 //   kSwpipe   double-buffered band and intermediate, one barrier a tile: the load of
 //             tile s+1, the vertical pass of tile s and the horizontal pass of tile s-1
 //             run in the same interval.
-// Every variant but kBfmid, kNovert and kNohoriz gives the production kernel's bytes;
-// those three give the bytes of their own plain versions
-// (lanczos_torch/tools/ablate_fused.py).  What bounds the production kernel, and so what
-// these variants probe, is set out in PERF.md.
+// Every variant but kBfmid, kNovert and kNohoriz gives kFull's bytes, which are those of
+// the dense plain version (lanczos_torch/tools/ablate_fused.py) and lie within the fused
+// kernel's limits of the production kernel's; those three give the bytes of their own
+// plain versions.
 //
-// Layouts are fused_resample.cu's (linear): x (nc, H, W) u8, out (nc, OH, OW) u8,
+// Layouts (dense_layout in the tool): x (nc, H, W) u8, out (nc, OH, OW) u8,
 // wvT (num_tiles, kv, tile_p) WT, wh (n_uniq, kh, cb_p) WT, starts_v (num_tiles,),
 // starts_h, uniq_h (n_cb,) int32.  kBand3 needs W % 4 == 0 (the wrapper checks).
 
@@ -55,8 +60,8 @@ enum Stage : int {
 };
 constexpr int kWalk = 8;  // row tiles one row-walk block computes
 
-// an intermediate value into shared memory: as production (float, rounded to bf16 in
-// the bf16 instantiations), or as bf16 (kBfmid)
+// an intermediate value into shared memory: as kFull (float, rounded to bf16 in the
+// bf16 instantiations), or as bf16 (kBfmid)
 template <typename WT>
 __device__ __forceinline__ void put_mid(float* p, float v, const WT* w) {
   *p = round_mid(v, w);
@@ -66,7 +71,7 @@ __device__ __forceinline__ void put_mid(__nv_bfloat16* p, float v, const WT*) {
   *p = __float2bfloat16_rn(v);
 }
 
-// production step 1: the uint8 band as float, zero past H, W and kh
+// step 1: the uint8 band as float, zero past H, W and kh
 __device__ __forceinline__ void load_band(float* band, const uint8_t* __restrict__ xp, int r0,
                                           int c0, const Geometry& g) {
   for (int e = threadIdx.x; e < g.kv * g.kh_p; e += kThreads) {
@@ -76,7 +81,7 @@ __device__ __forceinline__ void load_band(float* band, const uint8_t* __restrict
   }
 }
 
-// production step 2: midT (kh_p x tile_p) = band^T . wvT[i]; NOVERT copies band rows
+// step 2: midT (kh_p x tile_p) = band^T . wvT[i]; NOVERT copies band rows
 template <bool NOVERT, typename WT, typename MidT>
 __device__ __forceinline__ void vertical(const float* band, const WT* __restrict__ wv_i,
                                          MidT* midT, const Geometry& g) {
@@ -102,7 +107,7 @@ __device__ __forceinline__ void vertical(const float* band, const WT* __restrict
 __device__ __forceinline__ float mid_value(const float* p) { return *p; }
 __device__ __forceinline__ float mid_value(const __nv_bfloat16* p) { return __bfloat162float(*p); }
 
-// production steps 3-4: out tile = midT^T . wh[u], trunc-clipped, masked at the ragged
+// steps 3-4: out tile = midT^T . wh[u], trunc-clipped, masked at the ragged
 // edges; NOHORIZ copies intermediate columns, NOTRUNC and MANOUT change the store
 template <int STAGE, typename WT, typename MidT>
 __device__ __forceinline__ void horizontal(const MidT* midT, const WT* __restrict__ wh_b,

@@ -1,7 +1,8 @@
-// The fused kernel's register-tiled product and its operand loads, shared by the
-// production kernel (fused_resample.cu) and its ablation copies (ablate_fused.cu), so
-// that an ablation variant runs exactly the production arithmetic in every stage it
-// keeps.
+// The dense fused kernel's register-tiled product and its operand loads, shared by the
+// per-tile and the row-walk kernel of ablate_fused.cu, so that an ablation variant runs
+// exactly `full`'s arithmetic in every stage it keeps.  This is the design carried over
+// from the TPU kernel (dense products over per-tile windows); the production kernel,
+// fused_resample.cu, no longer uses it.
 
 #pragma once
 

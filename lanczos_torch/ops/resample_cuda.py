@@ -3,8 +3,8 @@ its plain PyTorch version, and the routing between the port's kernels.
 
 The port of ``lanczos_tpu/ops/resample_pallas.py``'s MXU variant
 (``_build_mxu_plan``, ``_fused_call_mxu``, ``_fused_kernel_mxu``) and of
-``PallasOps``'s choice of kernel.  Both passes are dense products over
-matrices built on the host from :func:`banded_weights`, so edge modes,
+``PallasOps``'s choice of kernel.  Both passes are products over matrices
+built on the host from :func:`banded_weights`, so edge modes,
 normalization and any rational N/D live in the weights:
 
 - vertical: output rows in tiles of ``tile_out``; tile ``i`` reads input
@@ -19,6 +19,19 @@ The plan follows the TPU plan's meaning but not its Mosaic rules (no
 split): tiles are sized for the CUDA kernel in ``csrc/fused_resample.cu``.
 Reads past the image are masked to zero by the kernel, so the input is
 never padded, and so are the stores at the ragged bottom and right edges.
+
+The plan's matrices are dense but banded: a row of ``wv`` (a column of
+``wh``) has one short run of nonzeros.  On the TPU the matrix unit made
+the zeros free; on the H100's SIMT cores they are most of the work, so
+neither the kernel nor its plain version multiplies them.  Both read a
+compact form derived from the plan's own matrices, after
+:func:`plan_weights` (so edge folding, normalization and the bf16
+sum-keeping rounding stay where they are): :func:`compact_runs` gives each
+output its band-relative first tap and a fixed-length run of weights (the
+plain version walks it in tap order); :func:`group_windows` gives each
+group of four outputs one shared window (the kernel's register tile).
+Either holds every nonzero of the dense matrix, and a plan whose runs are
+long (a hand-built plan, a steep downscale) only gets longer runs.
 
 Two nonlinearities, height first only: the FSR dering clamp (each pass
 clamped to the [min, max] of its output's two central taps, read through
@@ -96,10 +109,40 @@ class FusedPlan:
 
     def smem_bytes(self) -> int:
         """Shared memory one block of the CUDA kernel needs (its launcher's
-        sum: the band and the intermediate, whose rows a dering plan pads
-        by 4 words)."""
-        kh_p, pad = _round_up(self.kh, 8), 4 if self.center_v is not None else 0
-        return 4 * (self.kv * (kh_p + pad) + kh_p * (_round_up(self.tile_out, 8) + pad))
+        sum: the uint8 band, the fp32 intermediate, the uint8 output tile
+        staged for 16-byte stores, and the block's tables: its window
+        weights and bases, and a dering plan's central-tap offsets)."""
+        win_v, win_h = _window_lengths(self)
+        sizes = smem_layout(self.tile_out, self.kv, self.cb, self.kh)
+        tile_p, cb_p = sizes["tile_p"], sizes["cb_p"]
+        tables = 4 * (win_v * tile_p + win_h * cb_p) + tile_p + cb_p
+        if self.center_v is not None:
+            tables += 8 * (tile_p + cb_p)
+        return sizes["band"] + sizes["mid"] + sizes["stage"] + tables
+
+
+def smem_layout(tile: int, kv: int, cb: int, kh: int) -> dict:
+    """Sizes of the band, the intermediate and the staged tile in one
+    block's shared memory, as the kernel lays them out.
+
+    ``mw``: columns of the intermediate, which starts at the 8-column
+    boundary at or below the block's first tap (so up to 7 columns before
+    it).  ``bw``: bytes of a band row: the band starts at the 16-byte
+    boundary at or below ``starts_h[b]``, so up to 8 more; a stride that is
+    a multiple of 32 bytes would put every fourth row on the same banks, so
+    such a stride grows by 16.  ``stage_w``: bytes of a staged output row, a
+    power of two of 16-byte chunks (the kernel swizzles chunks by row)."""
+    tile_p, cb_p = _round_up(tile, 8), _round_up(cb, 4)
+    mw = _round_up(kh + 7, 8)
+    bw = _round_up(mw + 8, 16)
+    if bw % 32 == 0:
+        bw += 16
+    chunks = 1 << (-(-cb_p // 16) - 1).bit_length()
+    stage_w = 16 * chunks
+    return dict(
+        tile_p=tile_p, cb_p=cb_p, bw=bw, mw=mw, stage_w=stage_w,
+        band=kv * bw, mid=4 * mw * tile_p, stage=tile_p * stage_w,
+    )
 
 
 def _block_width(nh: int, cb_target: int) -> int:
@@ -229,19 +272,20 @@ def plan_at(cfg: ResampleConfig, tile: int, cb: int = 128) -> Optional[FusedPlan
 def fused_plan(cfg: ResampleConfig) -> Optional[FusedPlan]:
     """The fused plan of a whole-frame config, or None where none fits.
 
-    Starts at 64-row tiles and 128-column blocks: one block is then 256
-    threads of 8×4 outputs each, exactly, and at 2× the dense products cost
-    ~90 multiply-adds per output pixel.  Smaller tiles and blocks cut that
-    (the dense windows shrink) but leave threads idle, and measured slower
-    on the H100 (``PERF.md``).  Steep downscales, whose bands outgrow
-    shared memory, retry with smaller tiles and blocks.  A width-first
+    Starts at 64-row tiles and 128-column blocks: the horizontal pass is
+    then 256 threads of 8×4 outputs each, exactly, and a block's band
+    carries 16% more rows and 8% more columns than its outputs need at 2×.
+    Steep downscales, whose bands outgrow shared memory, retry with
+    smaller tiles and blocks, down to 16 rows by 32 columns: an 8-row tile
+    is one row group of the horizontal pass (4 busy threads a block), and
+    what does not fit at 16 × 32 (a 1/16 thumbnail) is v1's.  A width-first
     config with dering or the quantized intermediate has no plan of its
     own: the kernel runs height first, and through a nonlinearity the
     order shows (``FusedOps`` runs its :func:`transposed_cfg`)."""
     if cfg.order != Order.HEIGHT_FIRST and (cfg.dering or cfg.intermediate_quantize):
         return None
     ops = _operators(cfg)
-    for tile, cb in ((64, 128), (32, 64), (16, 32), (8, 16)):
+    for tile, cb in ((64, 128), (32, 64), (16, 32)):
         plan = build_fused_plan(cfg, tile, *ops, cb)
         if plan is not None:
             return plan
@@ -315,23 +359,96 @@ def plan_weights(plan: FusedPlan, precision: Precision) -> tuple:
     return plan.wv.astype(np.float32), plan.wh.astype(np.float32)
 
 
+GROUP = 4  # outputs that share one window in the kernel's register tile
+
+
+def compact_runs(w: np.ndarray) -> tuple:
+    """The compact form of banded rows: ``w`` is ``(n, size, K)``, each row
+    ``w[n, r]`` one run of nonzeros; returns ``first`` ``(n, size)`` int32,
+    the band-relative first tap of each row, and ``taps`` ``(n, size, T)``,
+    its run, ``T`` the longest run in ``w`` and shorter runs zero-filled.
+    ``first`` is lowered where a run would pass ``K``, so every
+    ``first + t`` is a valid band index; an all-zero row has first 0."""
+    w = np.asarray(w)
+    k = w.shape[-1]
+    nz = w != 0
+    has = nz.any(-1)
+    first = np.where(has, nz.argmax(-1), 0)
+    last = np.where(has, k - 1 - nz[..., ::-1].argmax(-1), -1)
+    t = max(int((last - first + 1).max()), 1)
+    first = np.minimum(first, k - t)
+    taps = np.take_along_axis(w, first[..., None] + np.arange(t), -1)
+    return first.astype(np.int32), np.ascontiguousarray(taps)
+
+
+def group_windows(w: np.ndarray, group: int = GROUP) -> tuple:
+    """One shared window per ``group`` consecutive rows of ``w`` ``(n,
+    size, K)`` (``size`` a multiple of ``group``): returns ``base`` ``(n,
+    size/group)`` int32, the first band index any row of the group touches,
+    and ``win`` ``(n, size/group, L, group)``, ``win[n, g, j, e] =
+    w[n, group·g + e, base[n, g] + j]``, ``L`` the longest window in ``w``.
+    ``base`` is lowered where a window would pass ``K``."""
+    w = np.asarray(w)
+    n, size, k = w.shape
+    wg = w.reshape(n, size // group, group, k)
+    first, taps = compact_runs((wg != 0).any(2).astype(np.int8))
+    idx = first[..., None] + np.arange(taps.shape[-1])  # (n, groups, L)
+    win = np.take_along_axis(wg, idx[:, :, None, :], -1)  # (n, groups, group, L)
+    return first, np.ascontiguousarray(np.swapaxes(win, 2, 3))
+
+
+@functools.lru_cache(maxsize=16)
+def _window_lengths(plan: FusedPlan) -> tuple:
+    """``(win_v, win_h)`` of the plan's shared windows, from where its
+    float64 weights are nonzero (no shorter than any precision's)."""
+    def length(w: np.ndarray) -> int:
+        n, size, k = w.shape
+        padded = np.zeros((n, _round_up(size, GROUP), k), bool)
+        padded[:, :size] = w != 0
+        return group_windows(padded)[1].shape[2]
+
+    return length(plan.wv), length(np.swapaxes(plan.wh, 1, 2))
+
+
+def plan_runs(plan: FusedPlan, precision: Precision) -> tuple:
+    """``(first_v, taps_v, first_h, taps_h)``: the compact form of
+    :func:`plan_weights`' matrices, per output row of each tile
+    ``(num_tiles, tile_out[, T_v])`` and per output column of each unique
+    block ``(n_uniq, cb[, T_h])``."""
+    wv, wh = plan_weights(plan, precision)
+    return compact_runs(wv) + compact_runs(np.swapaxes(wh, 1, 2))
+
+
 @functools.lru_cache(maxsize=8)
 def _reference_tables(plan: FusedPlan, precision: Precision, device: str):
-    wv, wh = plan_weights(plan, precision)
-    uniq_h = torch.from_numpy(plan.uniq_h.astype(np.int64))
-    starts_v = torch.from_numpy(plan.starts_v.astype(np.int64))
-    starts_h = torch.from_numpy(plan.starts_h.astype(np.int64))
+    first_v, taps_v, first_h, taps_h = plan_runs(plan, precision)
+    uniq_h = plan.uniq_h.astype(np.int64)
+    starts_v = plan.starts_v.astype(np.int64)[:, None]
+    starts_h = plan.starts_h.astype(np.int64)[:, None]
     tables = [
-        torch.from_numpy(wv),
-        torch.from_numpy(wh)[uniq_h],
-        starts_v[:, None] + torch.arange(plan.kv),
-        starts_h[:, None] + torch.arange(plan.kh),
+        (starts_v + first_v).reshape(-1),  # input row of each output row's first tap
+        taps_v.reshape(-1, taps_v.shape[-1]),
+        (starts_h + first_h[uniq_h]).reshape(-1),  # likewise per output column
+        taps_h[uniq_h].reshape(-1, taps_h.shape[-1]),
     ]
     if plan.center_v is not None:  # input rows and intermediate columns of the bounds
-        tables.append(starts_v[:, None, None] + torch.from_numpy(plan.center_v.astype(np.int64)))
-        center_h = torch.from_numpy(plan.center_h.astype(np.int64))[uniq_h]
-        tables.append(starts_h[:, None, None] + center_h)
-    return tuple(t.to(torch.device(device)) for t in tables)
+        tables.append((starts_v[:, None] + plan.center_v).transpose(1, 0, 2).reshape(2, -1))
+        center_h = plan.center_h.astype(np.int64)[uniq_h]
+        tables.append((starts_h[:, None] + center_h).transpose(1, 0, 2).reshape(2, -1))
+    return tuple(torch.from_numpy(np.ascontiguousarray(t)).to(torch.device(device))
+                 for t in tables)
+
+
+def _tap_pass(x: torch.Tensor, first: torch.Tensor, taps: torch.Tensor, axis: int):
+    """``Σ_t taps[:, t] · x[first + t]`` along ``axis``, in tap order, each
+    term a multiply and then an add in fp32."""
+    shape = [1] * x.dim()
+    shape[axis] = first.numel()
+    acc = None
+    for t in range(taps.shape[1]):
+        term = taps[:, t].reshape(shape) * x.index_select(axis, first + t)
+        acc = term if acc is None else acc.add_(term)
+    return acc
 
 
 def _clamp_between(v: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -348,46 +465,45 @@ def fused_resample_reference(
     out_shape: Optional[tuple] = None, dering: bool = False, quantize: bool = False,
 ) -> torch.Tensor:
     """Plain PyTorch version of the fused kernel: (NC, H, W) uint8 →
-    (NC, OH, OW) uint8 on the same tiles, starts and deduplicated blocks.
+    (NC, OH, OW) uint8 on the same tiles, starts and deduplicated blocks,
+    walking the compact form (:func:`plan_runs`) in tap order.
 
-    In the TPU kernel's order: the vertical product; with ``dering``, the
-    clamp to its two central band values; with ``quantize``,
+    In the TPU kernel's order: the vertical sums; with ``dering``, the
+    clamp to their two central band values; with ``quantize``,
     ``trunc(clip(·, 0, 255))``; in bf16, the intermediate's rounding to
-    bf16; the horizontal product; with ``dering``, the clamp to the two
+    bf16; the horizontal sums; with ``dering``, the clamp to the two
     central values of the stored (rounded) intermediate; the output's
     ``trunc(clip(·, 0, 255))``, cut to ``out_shape`` (default: the plan's
     tile and block grid).  fp32: fp32 weights, intermediate and sums.
     bf16: weights rounded to bf16 (:func:`plan_weights`), sums in fp32.
-    On CUDA the caller must keep TF32 off
-    (``torch.backends.cuda.matmul.allow_tf32 = False``): it would make this
-    reference less exact than the kernel it checks."""
+
+    The kernel takes the same sums over the same taps in the same order,
+    but fused (``fmaf``) where this takes a multiply and then an add, so
+    the two agree to the rounding of an fp32 sum, not byte for byte: the
+    kernel is held to fp32 ≤ 1 LSB on ≤ 1% of pixels (quantized
+    intermediate ≤ 2 LSB), bf16 ≤ 3 LSB on ≤ 50%."""
     precision = Precision(precision)
     if x.dtype != torch.uint8 or x.dim() != 3:
         raise ValueError(f"expected (NC, H, W) uint8, got {tuple(x.shape)} {x.dtype}")
     if dering and plan.center_v is None:
         raise ValueError("dering needs a plan with central-tap offsets")
     nc, h, w = x.shape
-    wv, wh, rows, cols, *centers = _reference_tables(plan, precision, str(x.device))
+    rows, taps_v, cols, taps_h, *centers = _reference_tables(plan, precision, str(x.device))
     # zero beyond the image, as the kernel's masked band loads
-    hp = max(h, int(plan.starts_v.max()) + plan.kv)
-    wp = max(w, int(plan.starts_h.max()) + plan.kh)
+    hp = max(h, int(rows.max()) + taps_v.shape[1])
+    wp = max(w, int(cols.max()) + taps_h.shape[1])
     xf = torch.zeros((nc, hp, wp), dtype=torch.float32, device=x.device)
     xf[:, :h, :w] = x
-    band = xf[:, rows]  # (nc, num_tiles, kv, wp)
-    mid = torch.matmul(wv, band)  # (nc, num_tiles, tile, wp)
+    mid = _tap_pass(xf, rows, taps_v, 1)  # (nc, num_tiles * tile, wp)
     if dering:
-        c = xf[:, centers[0]]  # (nc, num_tiles, 2, tile, wp)
-        mid = _clamp_between(mid, c[:, :, 0], c[:, :, 1])
+        mid = _clamp_between(mid, xf[:, centers[0][0]], xf[:, centers[0][1]])
     if quantize:
         mid = _trunc_clip(mid)
     if precision == Precision.BF16:
         mid = mid.to(torch.bfloat16).to(torch.float32)
-    mb = mid[..., cols]  # (nc, num_tiles, tile, n_cb, kh)
-    y = torch.einsum("ntrbk,bkc->ntrbc", mb, wh)
+    y = _tap_pass(mid, cols, taps_h, 2)  # (nc, num_tiles * tile, n_cb * cb)
     if dering:
-        c = mid[..., centers[1]]  # (nc, num_tiles, tile, n_cb, 2, cb)
-        y = _clamp_between(y, c[..., 0, :], c[..., 1, :])
-    y = y.reshape(nc, plan.num_tiles * plan.tile_out, plan.n_cb * plan.cb)
+        y = _clamp_between(y, mid[..., centers[1][0]], mid[..., centers[1][1]])
     if out_shape is not None:
         y = y[:, : out_shape[0], : out_shape[1]]
     return _trunc_clip(y).to(torch.uint8)
@@ -399,19 +515,29 @@ def fused_resample_reference(
 
 
 def kernel_layout(plan: FusedPlan, precision: Precision) -> dict:
-    """Host arrays in the CUDA kernel's layout: ``wvT (num_tiles, kv,
-    tile_p)`` and ``wh (n_uniq, kh, cb_p)`` zero-padded to ``tile_p =
-    round_up(tile, 8)`` and ``cb_p = round_up(cb, 4)``, the int32 starts,
-    for a dering plan the central-tap offsets ``cv (num_tiles, 2, tile_p)``
-    and ``ch (n_uniq, 2, cb_p)`` zero-padded alike, and the integer launch
-    arguments (``kh_p = round_up(kh, 8)``)."""
+    """Host arrays in the CUDA kernel's layout, and its integer launch
+    arguments.
+
+    The weights are :func:`group_windows` of :func:`plan_weights`' matrices,
+    rows padded with zeros to ``tile_p = round_up(tile, 8)`` and columns to
+    ``cb_p = round_up(cb, 4)``, step-major so that the threads of a warp
+    read neighbouring 16-byte groups: ``wv (num_tiles, win_v, tile_p/4, 4)``
+    with ``base_v (num_tiles, tile_p/4)``, ``wh (n_uniq, win_h, cb_p/4, 4)``
+    with ``base_h (n_uniq, cb_p/4)``, fp32 in both precisions (bf16 weights
+    are fp32 values that bf16 holds).  Then the int32 starts, for a dering
+    plan the central-tap offsets ``cv (num_tiles, 2, tile_p)`` and ``ch
+    (n_uniq, 2, cb_p)`` zero-padded alike, and :func:`smem_layout`'s
+    sizes."""
     tile, cb = plan.tile_out, plan.cb
-    tile_p, cb_p, kh_p = _round_up(tile, 8), _round_up(cb, 4), _round_up(plan.kh, 8)
+    sizes = smem_layout(tile, plan.kv, cb, plan.kh)
+    tile_p, cb_p = sizes["tile_p"], sizes["cb_p"]
     wv, wh = plan_weights(plan, precision)
-    wvT = np.zeros((plan.num_tiles, plan.kv, tile_p), np.float32)
-    wvT[:, :, :tile] = np.transpose(wv, (0, 2, 1))
-    whp = np.zeros((wh.shape[0], plan.kh, cb_p), np.float32)
-    whp[:, :, :cb] = wh
+    wvp = np.zeros((plan.num_tiles, tile_p, plan.kv), np.float32)
+    wvp[:, :tile] = wv
+    whp = np.zeros((wh.shape[0], cb_p, plan.kh), np.float32)
+    whp[:, :cb] = np.swapaxes(wh, 1, 2)
+    base_v, win_v = group_windows(wvp)
+    base_h, win_h = group_windows(whp)
     centers = {}
     if plan.center_v is not None:
         cv = np.zeros((plan.num_tiles, 2, tile_p), np.int32)
@@ -420,13 +546,15 @@ def kernel_layout(plan: FusedPlan, precision: Precision) -> dict:
         ch[:, :, :cb] = plan.center_h
         centers = dict(cv=cv, ch=ch)
     return dict(
-        wvT=wvT,
-        wh=whp,
+        wv=np.ascontiguousarray(np.swapaxes(win_v, 1, 2)),
+        wh=np.ascontiguousarray(np.swapaxes(win_h, 1, 2)),
+        base_v=base_v, base_h=base_h,
         starts_v=plan.starts_v.astype(np.int32),
         starts_h=plan.starts_h.astype(np.int32),
         uniq_h=plan.uniq_h.astype(np.int32),
         tile=tile, tile_p=tile_p, kv=plan.kv, cb=cb, cb_p=cb_p, kh=plan.kh,
-        kh_p=kh_p, n_cb=plan.n_cb, num_tiles=plan.num_tiles,
+        win_v=win_v.shape[2], win_h=win_h.shape[2], bw=sizes["bw"], mw=sizes["mw"],
+        stage_w=sizes["stage_w"], n_cb=plan.n_cb, num_tiles=plan.num_tiles,
         **centers,
     )
 
@@ -535,8 +663,8 @@ class FusedOps:
     ``variant`` (``"mxu"``, ``"v2"`` or ``"v1"``) and ``kernel`` then name
     what runs; of ``plan`` (the fused plan), ``shift`` (kernel 2's ops) and
     ``phase`` (v1's ops) one is set and the others are None.  On CUDA the
-    fused weights are uploaded once in the kernel's layout (fp32, or bf16
-    for ``Precision.BF16``); on the CPU the plain versions run."""
+    fused weights are uploaded once in the kernel's layout
+    (:func:`kernel_layout`); on the CPU the plain versions run."""
 
     def __init__(
         self, cfg: ResampleConfig, device="cuda", plan: Optional[FusedPlan] = None,
@@ -594,14 +722,9 @@ class FusedOps:
             if plan.num_tiles > 65535:
                 raise ValueError(f"{plan.num_tiles} row tiles exceed gridDim.y")
             lay = kernel_layout(plan, cfg.precision)
-            wdt = torch.bfloat16 if bf16 else torch.float32
             self.tensors = {
-                k: torch.from_numpy(lay[k]).to(self.device, wdt)
-                for k in ("wvT", "wh")
-            } | {
-                k: torch.from_numpy(lay[k]).to(self.device)
-                for k in ("starts_v", "starts_h", "uniq_h", "cv", "ch")
-                if k in lay
+                k: torch.from_numpy(v).to(self.device)
+                for k, v in lay.items() if isinstance(v, np.ndarray)
             }
             self.args = {k: v for k, v in lay.items() if isinstance(v, int)}
 
@@ -653,11 +776,13 @@ def fused_call(ops: FusedOps, x: torch.Tensor, wv=None) -> torch.Tensor:
     centers = [t["cv"].data_ptr(), t["ch"].data_ptr()] if cfg.dering else [None, None]
     with torch.cuda.device(x.device):
         code = lib.lanczos_fused_resample(
-            x.data_ptr(), out.data_ptr(), t["wvT"].data_ptr(), t["wh"].data_ptr(),
+            x.data_ptr(), out.data_ptr(), t["wv"].data_ptr(), t["wh"].data_ptr(),
+            t["base_v"].data_ptr(), t["base_h"].data_ptr(),
             t["starts_v"].data_ptr(), t["starts_h"].data_ptr(),
             t["uniq_h"].data_ptr(), *centers, nc, h, w, oh, ow, a["tile"],
-            a["tile_p"], a["kv"], a["cb"], a["cb_p"], a["kh"], a["kh_p"], a["n_cb"],
-            a["num_tiles"], int(cfg.precision == Precision.BF16), int(cfg.dering),
+            a["tile_p"], a["kv"], a["cb"], a["cb_p"], a["kh"], a["win_v"], a["win_h"],
+            a["bw"], a["mw"], a["stage_w"], a["n_cb"], a["num_tiles"],
+            int(cfg.precision == Precision.BF16), int(cfg.dering),
             int(cfg.intermediate_quantize),
             torch.cuda.current_stream(x.device).cuda_stream,
         )

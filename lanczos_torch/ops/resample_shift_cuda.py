@@ -169,23 +169,31 @@ def shift_resample_reference(
 # ---------------------------------------------------------------------------
 
 
+RUN = 4  # source rows (columns) of one thread's run in the kernel
+
+
 def smem_bytes(plan: ShiftPlan, tr: int, tc: int) -> int:
-    """Shared memory of one block of the kernel (mirrors its launcher):
-    both phase tables and floors, the fp32 intermediate (tr rows) and the
-    uint8 band, each ``tc/nh + 2·support`` columns wide."""
+    """Shared memory of one block of the kernel (mirrors its launcher): the
+    uint8 band (``tr/nv + 2·support`` rows, its origin moved left to a
+    16-byte boundary of the source and a word of slack for the realigning
+    loads), the fp32 intermediate (``tr`` rows of ``tc/nh + 2·support``
+    columns rounded up to 4), the staged uint8 output tile, and both phase
+    tables and floors."""
     taps = 2 * plan.support
-    eh = tc // plan.nh + taps
+    mwid = -(-(tc // plan.nh + taps) // 4) * 4
+    bwid = -(-(mwid + 19) // 16) * 16
     ev = tr // plan.nv + taps
-    return 4 * ((plan.nv + plan.nh) * (taps + 1) + tr * eh) + ev * eh
+    return ev * bwid + 4 * tr * mwid + tr * tc + 4 * (plan.nv + plan.nh) * (taps + 1)
 
 
 def kernel_tiles(plan: ShiftPlan) -> tuple:
-    """Output rows and columns of one block: about 32 × 128, whole phase
-    periods, shrunk until a block's band and intermediate fit shared
-    memory; None where even one phase period does not."""
-    for rt, ct in ((32, 128), (16, 64), (8, 32), (1, 1)):
-        tr = plan.nv * -(-rt // plan.nv)
-        tc = plan.nh * -(-ct // plan.nh)
+    """Output rows and columns of one block: about 64 × 128, whole phase
+    periods of a multiple of 4 source rows and of 16 source columns (the
+    kernel's thread runs and 16-byte stores), shrunk until a block fits
+    shared memory; None where the smallest does not."""
+    for rt, ct in ((64, 128), (32, 64), (16, 32), (1, 1)):
+        tr = plan.nv * max(RUN, rt // plan.nv // RUN * RUN)
+        tc = plan.nh * max(16, ct // plan.nh // 16 * 16)
         if smem_bytes(plan, tr, tc) <= _build.SMEM_LIMIT:
             return tr, tc
     return None

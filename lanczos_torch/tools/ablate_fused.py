@@ -3,13 +3,16 @@
     python -m lanczos_torch.tools.ablate_fused 64:full 64:f32full 64:novert ...
 
 The port of ``tools/ablate_mxu.py``: each spec is ``tile:variant``, and a
-variant is one stage of the linear fused kernel (``csrc/fused_resample.cu``)
-deleted or restructured in ``csrc/ablate_fused.cu``, so that its time
-against the production kernel's shows what that stage costs.  A ``f32``
-prefix runs the fp32 weights, no prefix the bf16 ones (``full`` is the bf16
-production kernel, ``f32full`` the fp32 one).  Stages (:data:`STAGES`):
+variant is one stage of the dense fused kernel deleted or restructured in
+``csrc/ablate_fused.cu``, so that its time against ``full``'s shows what
+that stage costs.  The dense kernel is the design carried over from the
+TPU (both passes dense products over per-tile windows); it was the
+production kernel until ``csrc/fused_resample.cu`` became band-sparse, and
+``full`` / ``f32full`` keep it here, so every run also times the old
+design beside the new.  A ``f32`` prefix runs the fp32 weights, no prefix
+the bf16 ones.  Stages (:data:`STAGES`):
 
-- ``full``: the production stages;
+- ``full``: the dense kernel's stages;
 - ``notrunc``: a saturating conversion in place of the store's clamp and
   truncation;
 - ``bfmid``: the intermediate held in shared memory as bf16;
@@ -24,20 +27,25 @@ production kernel, ``f32full`` the fp32 one).  Stages (:data:`STAGES`):
 
 The frame is the JAX tool's: 12 planes of 2160×3840 → 4320×7680,
 Lanczos-3, uniform noise from ``numpy.random.default_rng(0)``.  For each
-spec the tool checks the variant's bytes against ``fused_call`` on the same
-plan (equal, except for ``bfmid``, ``novert`` and ``nohoriz``, which may
-differ: :data:`DIFFERS`) and against its own plain version on the first
-frame (always equal), then times the production kernel and the variant
-with CUDA events (order production, variant, variant, production) and
-prints ms per 3-plane frame with the card's name and power limit.  It
-exits non-zero where a variant that should match does not, and, before
-running anything, on a spec it cannot run: the TPU variants that merged
-hi/lo products to fill the MXU have no counterpart (:data:`NO_COUNTERPART`).
+spec the tool checks the variant's bytes against its own dense plain
+version on the first frame (always equal) and against ``fused_call`` on
+the same plan.  The production kernel sums each output's taps alone, in
+another order than a dense product, so a variant that keeps ``full``'s
+semantics agrees with it within the fused kernel's limits (fp32 ≤ 1 LSB on
+≤ 1% of pixels, bf16 ≤ 3 LSB on ≤ 50%), not byte for byte; ``bfmid``,
+``novert`` and ``nohoriz`` may differ (:data:`DIFFERS`).  Then it times
+the production kernel and the variant with CUDA events (order production,
+variant, variant, production) and prints ms per 3-plane frame with the
+card's name and power limit.  It exits non-zero where a variant that
+should match does not, and, before running anything, on a spec it cannot
+run: the TPU variants that merged hi/lo products to fill the MXU have no
+counterpart (:data:`NO_COUNTERPART`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import subprocess
 import sys
 from typing import Optional
@@ -67,6 +75,9 @@ NO_COUNTERPART = {
     "f32novertlo": _HILO, "f32nomidlo": _HILO, "f32nowhlo": _HILO,
 }
 FRAME_IN, FRAME_OUT, PLANES = (2160, 3840), (4320, 7680), 12
+# (max |d|, share of differing pixels) a variant that keeps ``full``'s
+# semantics may show against the production kernel
+LIMITS = {Precision.FP32: (1, 0.01), Precision.BF16: (3, 0.50)}
 
 # Launches of the ablation kernels by this process, per variant; only
 # ablate_call adds to it, where it launches.
@@ -114,22 +125,41 @@ def frame_cfg(precision: Precision, in_shape=FRAME_IN, out_shape=FRAME_OUT) -> R
 # ---------------------------------------------------------------------------
 
 
+@functools.lru_cache(maxsize=8)
+def _dense_tables(plan: rc.FusedPlan, precision: Precision, device: str):
+    wv, wh = rc.plan_weights(plan, precision)
+    uniq_h = torch.from_numpy(plan.uniq_h.astype(np.int64))
+    starts_v = torch.from_numpy(plan.starts_v.astype(np.int64))
+    starts_h = torch.from_numpy(plan.starts_h.astype(np.int64))
+    tables = (
+        torch.from_numpy(wv),
+        torch.from_numpy(wh)[uniq_h],
+        starts_v[:, None] + torch.arange(plan.kv),
+        starts_h[:, None] + torch.arange(plan.kh),
+    )
+    return tuple(t.to(torch.device(device)) for t in tables)
+
+
 def ablation_reference(
     x: torch.Tensor, plan: rc.FusedPlan, precision: Precision, stage: str,
     out_shape: tuple,
 ) -> torch.Tensor:
     """Plain PyTorch version of one ablation variant: (NC, H, W) uint8 →
-    (NC, OH, OW) uint8 on ``plan``.  The stages that keep ``full``'s
-    semantics are ``resample_cuda.fused_resample_reference``; ``bfmid``
-    rounds the intermediate to bf16 whatever the weights; ``novert`` and
-    ``nohoriz`` replace their pass's product by the kernel's copy."""
+    (NC, OH, OW) uint8 on ``plan``, both passes dense products over the
+    plan's windows as the dense kernel takes them (the stages that keep
+    ``full``'s semantics are the dense plain version of the linear fused
+    resample).  ``bfmid`` rounds the intermediate to bf16 whatever the
+    weights; ``novert`` and ``nohoriz`` replace their pass's product by the
+    kernel's copy.  On CUDA the caller must keep TF32 off
+    (``torch.backends.cuda.matmul.allow_tf32 = False``)."""
     precision = Precision(precision)
-    if stage not in DIFFERS:
-        return rc.fused_resample_reference(x, plan, precision, out_shape)
+    if stage not in STAGES:
+        raise ValueError(f"unknown stage {stage!r}; one of {STAGES}")
     if x.dtype != torch.uint8 or x.dim() != 3:
         raise ValueError(f"expected (NC, H, W) uint8, got {tuple(x.shape)} {x.dtype}")
     nc, h, w = x.shape
-    wv, wh, rows, cols = rc._reference_tables(plan, precision, str(x.device))[:4]
+    wv, wh, rows, cols = _dense_tables(plan, precision, str(x.device))
+    # zero beyond the image, as the kernel's masked band loads
     hp = max(h, int(plan.starts_v.max()) + plan.kv)
     wp = max(w, int(plan.starts_h.max()) + plan.kh)
     xf = torch.zeros((nc, hp, wp), dtype=torch.float32, device=x.device)
@@ -154,6 +184,40 @@ def ablation_reference(
 # ---------------------------------------------------------------------------
 # the kernels' wrapper
 # ---------------------------------------------------------------------------
+
+
+def dense_layout(plan: rc.FusedPlan, precision: Precision) -> dict:
+    """Host arrays in the dense kernels' layout: ``wvT (num_tiles, kv,
+    tile_p)`` and ``wh (n_uniq, kh, cb_p)`` zero-padded to ``tile_p =
+    round_up(tile, 8)`` and ``cb_p = round_up(cb, 4)``, the int32 starts,
+    and the integer launch arguments (``kh_p = round_up(kh, 8)``)."""
+    tile, cb = plan.tile_out, plan.cb
+    tile_p, cb_p, kh_p = rc._round_up(tile, 8), rc._round_up(cb, 4), rc._round_up(plan.kh, 8)
+    wv, wh = rc.plan_weights(plan, precision)
+    wvT = np.zeros((plan.num_tiles, plan.kv, tile_p), np.float32)
+    wvT[:, :, :tile] = np.transpose(wv, (0, 2, 1))
+    whp = np.zeros((wh.shape[0], plan.kh, cb_p), np.float32)
+    whp[:, :, :cb] = wh
+    return dict(
+        wvT=wvT, wh=whp,
+        starts_v=plan.starts_v.astype(np.int32),
+        starts_h=plan.starts_h.astype(np.int32),
+        uniq_h=plan.uniq_h.astype(np.int32),
+        tile=tile, tile_p=tile_p, kv=plan.kv, cb=cb, cb_p=cb_p, kh=plan.kh,
+        kh_p=kh_p, n_cb=plan.n_cb, num_tiles=plan.num_tiles,
+    )
+
+
+@functools.lru_cache(maxsize=4)
+def _dense_tensors(plan: rc.FusedPlan, precision: Precision, device: torch.device) -> tuple:
+    """The plan's weights in the dense kernels' layout on ``device`` (fp32,
+    or bf16 for ``Precision.BF16``) and the integer launch arguments."""
+    lay = dense_layout(plan, precision)
+    wdt = torch.bfloat16 if precision == Precision.BF16 else torch.float32
+    tensors = {k: torch.from_numpy(lay[k]).to(device, wdt) for k in ("wvT", "wh")}
+    tensors |= {k: torch.from_numpy(lay[k]).to(device)
+                for k in ("starts_v", "starts_h", "uniq_h")}
+    return tensors, {k: v for k, v in lay.items() if isinstance(v, int)}
 
 
 def ablate_call(ops: rc.FusedOps, x: torch.Tensor, stage: str) -> torch.Tensor:
@@ -181,7 +245,7 @@ def ablate_call(ops: rc.FusedOps, x: torch.Tensor, stage: str) -> torch.Tensor:
         raise ValueError(f"{nc} planes exceed gridDim.z")
     lib = _build.library()
     out = torch.empty((nc, oh, ow), dtype=torch.uint8, device=x.device)
-    t, a = ops.tensors, ops.args
+    t, a = _dense_tensors(ops.plan, cfg.precision, ops.device)
     bf16 = cfg.precision == Precision.BF16
     with torch.cuda.device(x.device):
         code = lib.lanczos_ablate_fused(
@@ -213,10 +277,13 @@ def run(specs: list, img: torch.Tensor, out_shape=FRAME_OUT, log=print) -> list:
     """Check and time each spec on ``img`` ((NC, H, W) uint8 on CUDA,
     NC a multiple of 3); one dict per spec: ``ms`` and ``prod_ms`` (the
     variant and the production kernel, ms per 3-plane frame, two runs
-    each), ``plain_ms`` (its plain version on one frame), whether it
-    equals the production bytes (``same``, and ``max_abs_diff`` on the
-    first frame) and its plain version's (``plain_same``,
-    ``plain_max_abs_diff``), and ``ok``."""
+    each), ``plain_ms`` (its plain version on one frame), how it compares
+    with the production kernel on the first frame (``same``: equal bytes;
+    ``max_abs_diff`` and ``differing``, the share of pixels; ``within``:
+    inside :data:`LIMITS` for its precision) and with its plain version
+    (``plain_same``, ``plain_max_abs_diff``), and ``ok``: equal to its
+    plain version and, unless it is one of :data:`DIFFERS`, within the
+    limits of the production kernel."""
     from lanczos_torch.utils.timing import cuda_time_ms
 
     frames = img.shape[0] / 3
@@ -238,8 +305,11 @@ def run(specs: list, img: torch.Tensor, out_shape=FRAME_OUT, log=print) -> list:
         same = torch.equal(got, prod)
         plain_same = torch.equal(got[:3], plain)
         d = (got[:3].int() - prod[:3].int()).abs()
+        d_max, differing = int(d.max()), float((d > 0).float().mean())
+        lim, share = LIMITS[spec.precision]
+        within = d_max <= lim and differing <= share
         plain_d = int((got[:3].int() - plain.int()).abs().max())
-        del got, prod, plain
+        del got, prod, plain, d
         runs = [
             cuda_time_ms(f) / frames
             for f in (lambda: rc.fused_call(ops, img), lambda: ablate_call(ops, img, spec.stage),
@@ -247,17 +317,18 @@ def run(specs: list, img: torch.Tensor, out_shape=FRAME_OUT, log=print) -> list:
         ]
         plain_ms = cuda_time_ms(lambda: ablation_reference(
             img[:3], plan, spec.precision, spec.stage, out_shape), iters=5)
-        ok = plain_same and (same or spec.stage in DIFFERS)
+        ok = plain_same and (within or spec.stage in DIFFERS)
         log(f"{spec}: tile_out={plan.tile_out} num_tiles={plan.num_tiles} "
             f"{runs[1]:.4f} / {runs[2]:.4f} ms/frame, production {runs[0]:.4f} / "
-            f"{runs[3]:.4f}, plain version {plain_ms:.4f}; equals production: {same} "
-            f"(max |d| {int(d.max())} on {float((d > 0).float().mean()):.6f}); equals its "
+            f"{runs[3]:.4f}, plain version {plain_ms:.4f}; against production: max |d| "
+            f"{d_max} on {differing:.6f} (limit {lim} on {share}: "
+            f"{'within' if within else 'outside'}); equals its "
             f"plain version: {plain_same}{'' if ok else '  MISMATCH'}")
         results.append(dict(
             spec=str(spec), variant=spec.variant, ms=(runs[1] + runs[2]) / 2,
-            prod_ms=(runs[0] + runs[3]) / 2, plain_ms=plain_ms, same=same,
-            plain_same=plain_same, max_abs_diff=int(d.max()), plain_max_abs_diff=plain_d,
-            ok=ok,
+            prod_ms=(runs[0] + runs[3]) / 2, plain_ms=plain_ms, same=same, within=within,
+            plain_same=plain_same, max_abs_diff=d_max, differing=differing,
+            plain_max_abs_diff=plain_d, ok=ok,
         ))
     return results
 

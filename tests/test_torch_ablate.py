@@ -2,8 +2,12 @@
 the port of ``tools/ablate_mxu.py``) on the CPU.
 
 - the plain versions of the variants that keep ``full``'s semantics are
-  ``fused_resample_reference``'s bytes, and ``ablate_call`` on a CPU tensor
-  runs them;
+  the dense plain version's bytes (both passes dense products over the
+  plan's windows, as the dense kernels take them) and agree with
+  ``fused_resample_reference``, which sums each output's taps alone in tap
+  order, within the fused kernel's limits (fp32 ≤ 1 LSB on ≤ 1% of
+  pixels, bf16 ≤ 3 LSB on ≤ 50%); ``ablate_call`` on a CPU tensor runs
+  them;
 - the three that may differ (``bfmid``, ``novert``, ``nohoriz``) do what
   they say: ``bfmid`` with bf16 weights is ``full``; each deleted pass is
   near the identity on an image that pass leaves unchanged;
@@ -48,16 +52,22 @@ def _ops(precision, in_shape=(40, 64), out_shape=(80, 128), tile=16, cb=32):
 def test_plain_variants_that_keep_full_are_its_bytes(stage, precision):
     ops = _ops(precision)
     x = torch.from_numpy(_noise((3, 40, 64), seed=0))
-    want = rc.fused_resample_reference(x, ops.plan, precision, ops.cfg.out_shape)
+    dense = af.ablation_reference(x, ops.plan, Precision(precision), "full",
+                                  ops.cfg.out_shape)
     got = af.ablation_reference(x, ops.plan, Precision(precision), stage, ops.cfg.out_shape)
-    assert torch.equal(got, want)
-    assert torch.equal(af.ablate_call(ops, x, stage), want)
+    assert torch.equal(got, dense)
+    assert torch.equal(af.ablate_call(ops, x, stage), dense)
+    # the production kernel's plain version: the same taps, summed in another order
+    sparse = rc.fused_resample_reference(x, ops.plan, precision, ops.cfg.out_shape)
+    d = (got.int() - sparse.int()).abs()
+    lim, share = af.LIMITS[Precision(precision)]
+    assert int(d.max()) <= lim and float((d > 0).float().mean()) <= share
 
 
 def test_bfmid_is_full_with_bf16_weights_and_near_f32full():
     x = torch.from_numpy(_noise((3, 40, 64), seed=1))
     bf, fp = _ops("bf16"), _ops("fp32")
-    assert torch.equal(af.ablate_call(bf, x, "bfmid"), rc.fused_call(bf, x))
+    assert torch.equal(af.ablate_call(bf, x, "bfmid"), af.ablate_call(bf, x, "full"))
     d = (af.ablate_call(fp, x, "bfmid").int() - rc.fused_call(fp, x).int()).abs()
     assert 0 < int(d.max()) <= 3 and float((d > 0).float().mean()) <= 0.5
 
@@ -72,11 +82,12 @@ def test_deleted_pass_is_near_identity_where_that_pass_is(stage, axis):
     line = _noise((in_shape[1 - axis],), seed=2)
     img = np.broadcast_to(line[None, :] if axis == 0 else line[:, None], in_shape)
     x = torch.from_numpy(np.ascontiguousarray(np.stack([img] * 3)))
-    d = (af.ablate_call(ops, x, stage).int() - rc.fused_call(ops, x).int()).abs()
-    assert int(d.max()) <= 1
+    for full in (af.ablate_call(ops, x, "full"), rc.fused_call(ops, x)):
+        d = (af.ablate_call(ops, x, stage).int() - full.int()).abs()
+        assert int(d.max()) <= 1
     # and on noise it is a different result
     y = torch.from_numpy(_noise((3,) + in_shape, seed=3))
-    assert not torch.equal(af.ablate_call(ops, y, stage), rc.fused_call(ops, y))
+    assert not torch.equal(af.ablate_call(ops, y, stage), af.ablate_call(ops, y, "full"))
 
 
 def _direct_band(x, plan, i, c0, kh_p):
@@ -138,12 +149,35 @@ def test_walk_bands_equal_direct_loads(stage, in_shape, out_shape, tile, cb):
     ops = _ops("fp32", in_shape, out_shape, tile, cb)
     plan = ops.plan
     x = _noise(in_shape, seed=4)
-    kh_p = rc.kernel_layout(plan, Precision.FP32)["kh_p"]
+    kh_p = af.dense_layout(plan, Precision.FP32)["kh_p"]
     assert np.all(np.diff(plan.starts_v) >= 0)
     for c0 in sorted(set(plan.starts_h.tolist())):
         bands = _walk_bands(x, plan, stage, c0, kh_p)
         for i in range(plan.num_tiles):
             np.testing.assert_array_equal(bands[i], _direct_band(x, plan, i, c0, kh_p))
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("in_shape,out_shape,tile,cb", [
+    ((40, 64), (80, 128), 16, 32),
+    ((30, 60), (45, 90), 8, 24),  # 3/2, tile_p and cb_p padding
+    ((50, 92), (100, 184), 13, 20),
+])
+def test_dense_layout_holds_the_plans_matrices(in_shape, out_shape, tile, cb, precision):
+    """The dense kernels' layout: the plan's matrices after ``plan_weights``,
+    transposed and zero-padded to the register tile, with the launch
+    arguments the dense kernels take."""
+    plan = _ops(precision, in_shape, out_shape, tile, cb).plan
+    lay = af.dense_layout(plan, Precision(precision))
+    wv, wh = rc.plan_weights(plan, Precision(precision))
+    assert lay["tile_p"] % 8 == 0 and lay["cb_p"] % 4 == 0 and lay["kh_p"] % 8 == 0
+    assert lay["wvT"].shape == (plan.num_tiles, plan.kv, lay["tile_p"])
+    assert lay["wh"].shape == (wh.shape[0], plan.kh, lay["cb_p"])
+    np.testing.assert_array_equal(lay["wvT"][:, :, : plan.tile_out], wv.transpose(0, 2, 1))
+    np.testing.assert_array_equal(lay["wh"][:, :, : plan.cb], wh)
+    assert not lay["wvT"][:, :, plan.tile_out :].any() and not lay["wh"][:, :, plan.cb :].any()
+    assert (lay["tile"], lay["cb"], lay["kv"], lay["kh"]) == (
+        plan.tile_out, plan.cb, plan.kv, plan.kh)
 
 
 def test_parse_spec():

@@ -110,6 +110,50 @@ def test_upscale_matches_tpu_gather(shape, scale, kw, precision):
     _within(got.numpy(), want, precision, kw)
 
 
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("shape,scale,kw", [
+    ((21, 37), (2, 1), {"dering": True}),  # odd W, OW = 74
+    ((18, 45), (3, 1), {"dering": True, "edge_mode": "reflect"}),  # OW = 135
+    ((22, 50), (3, 2), {"dering": True, "intermediate_quantize": True}),  # OW = 75
+    ((21, 37), (2, 1), {"intermediate_quantize": True}),
+    ((12, 16), (2, 1), {"dering": True}),  # one tile, one block
+    ((37, 21), (2, 1), {"dering": True, "order": "width_first"}),  # odd after the transpose
+])
+def test_unaligned_widths_match_tpu_gather(shape, scale, kw, precision):
+    """Widths that are no multiple of 16 (the kernel's byte paths), through
+    the compact form's tap-order sums, against the JAX gather path."""
+    img = _noise(shape + (3,), seed=12)
+    got = lanczos_torch.upscale(
+        img, scale=scale, a=3, precision=precision, device="cpu", **kw
+    )
+    want = np.asarray(_tpu_gather(img, scale=scale, a=3, **kw))
+    _within(got.numpy(), want, precision, kw)
+
+
+@pytest.mark.parametrize("shape,scale,kw", [
+    ((60, 80), (2, 1), {"dering": True}),
+    ((48, 64), (3, 2), {"dering": True, "edge_mode": "drop", "normalize": False}),
+    ((50, 70), (3, 2), {"dering": True, "align": "center"}),
+])
+def test_central_taps_lie_inside_each_outputs_run(shape, scale, kw):
+    """The clamp's two central taps are taps of the compact run wherever
+    their weights are nonzero, so the bounds the kernel reads come from
+    the band rows and intermediate columns its sums already touch."""
+    cfg = ResampleConfig.from_profile("precise", shape, scale=scale, a=3, **kw)
+    plan = rc.fused_plan(cfg)
+    first_v, taps_v, first_h, taps_h = rc.plan_runs(plan, cfg.precision)
+    wv, wh = rc.plan_weights(plan, cfg.precision)
+    for first, taps, center, dense in (
+        (first_v, taps_v, plan.center_v, wv),
+        (first_h, taps_h, plan.center_h, np.swapaxes(wh, 1, 2)),
+    ):
+        n = np.arange(dense.shape[0])[:, None, None]
+        r = np.arange(dense.shape[1])[None, None, :]
+        weight = dense[n, r, center]  # (n, 2, size)
+        inside = (center >= first[:, None]) & (center < first[:, None] + taps.shape[-1])
+        assert inside[weight != 0].all()
+
+
 def test_pass_order_shows_through_the_nonlinearity():
     """Width-first and height-first differ through the quantize, so the
     transposed kernel is load-bearing; the port follows the JAX package
@@ -176,13 +220,18 @@ def test_blocks_with_other_central_taps_do_not_share_a_matrix():
 def test_4k_dering_plan_fits_one_block():
     """At 4K→8K the dering plan is the linear plan plus offsets: the same
     64-row tiles and 128-column blocks and three unique horizontal
-    matrices; its shared rows are padded by 4 words, still one block."""
+    matrices.  A block holds a 37×112-byte band, an 80×64 fp32
+    intermediate, a 64×128-byte staged tile and its tables (7-step windows
+    of 16 row groups and 32 column groups, and their bases); the dering
+    plan adds its offsets (2×64 and 2×128 int32)."""
     lin = ResampleConfig.from_profile("precise", (2160, 3840), scale=(2, 1), a=3)
     der = ResampleConfig.from_profile("precise", (2160, 3840), scale=(2, 1), a=3,
                                       dering=True)
     p, q = rc.fused_plan(lin), rc.fused_plan(der)
     assert (q.tile_out, q.cb, q.kv, q.kh, q.wh.shape[0]) == (64, 128, 37, 69, 3)
-    assert p.smem_bytes() < q.smem_bytes() == p.smem_bytes() + 4 * 4 * (37 + 72) < 48 * 1024
+    tables = 16 * 7 * (16 + 32) + 4 * (16 + 32)
+    assert p.smem_bytes() == 37 * 112 + 4 * 80 * 64 + 64 * 128 + tables < 48 * 1024
+    assert q.smem_bytes() == p.smem_bytes() + 4 * 2 * (64 + 128) < 48 * 1024
     assert q.center_v.shape == (68, 2, 64) and q.center_h.shape == (3, 2, 128)
 
 

@@ -4,8 +4,12 @@ held to the JAX package on the same seeded inputs.
 - the plain version on the JAX kernel's own plan (``plan_from_reference``)
   against ``PallasOps(..., interpret=True, variant="mxu")``;
 - the plain version on the port's own plan against the JAX gather path;
-- the CUDA kernel's host-side layout (padding, transposes, launch
-  arguments), through a numpy re-enactment of the kernel's loops.
+- the compact form both read (each output's first tap and run of weights,
+  and the kernel's shared windows of four outputs) expands back to the
+  plan's dense matrices exactly;
+- the CUDA kernel's host-side layout (group windows, padding, the aligned
+  band and intermediate origins, launch arguments), through a numpy
+  re-enactment of the kernel's loops.
 
 Limits (``hwcert.py``'s contract): fp32 ≤ 1 LSB on ≤ 1% of pixels (the
 TPU kernel's fp32 is a hi/lo bf16 split, the port's plain fp32); bf16
@@ -183,19 +187,33 @@ def test_plan_bands_cover_every_tap(shape, scale, kw):
 
 def _emulate_kernel(x, lay, oh, ow, bf16, dering=False, quant=False):
     """The CUDA kernel's loops in numpy, on its host layout: per (block,
-    tile, plane), a masked band of kh_p zero-padded columns, the vertical
-    product against wvT[i] into midT (kh_p × tile_p), with dering clamped
-    to the band rows ``cv[i]`` names, with ``quant`` trunc-clipped, in bf16
-    rounded; then the horizontal product against wh[uniq_h[b]], with
-    dering clamped to the midT columns ``ch[uniq_h[b]]`` names, and a
-    masked trunc-clip store."""
+    tile, plane), the uint8 band from the 16-byte boundary at or below the
+    block's first column (zero past the image); the vertical pass, per
+    group of four tile rows a sum over the group's window ``base_v ..
+    base_v + win_v`` in step order, over the intermediate's ``mw`` columns
+    (from the 8-column boundary at or below the first tap), with dering
+    clamped to the band rows ``cv[i]`` names, with ``quant`` trunc-clipped,
+    in bf16 rounded; then the horizontal pass, per group of four columns a
+    sum over ``base_h .. base_h + win_h``, with dering clamped to the
+    intermediate columns ``ch[uniq_h[b]]`` names, the trunc-clip into the
+    staged tile (chunks swizzled by row group) and the masked store."""
     nc, h, w = x.shape
     out = np.full((nc, oh, ow), 7, np.uint8)  # stores must cover every pixel
     tile, tile_p, kv = lay["tile"], lay["tile_p"], lay["kv"]
-    cb, cb_p, kh, kh_p = lay["cb"], lay["cb_p"], lay["kh"], lay["kh_p"]
-    assert tile_p % 8 == 0 and kh_p % 8 == 0 and cb_p % 4 == 0
-    assert lay["wvT"].shape == (lay["num_tiles"], kv, tile_p)
-    assert lay["wh"].shape[1:] == (kh, cb_p)
+    cb, cb_p, kh = lay["cb"], lay["cb_p"], lay["kh"]
+    win_v, win_h, bw, mw, stage_w = (lay[k] for k in ("win_v", "win_h", "bw", "mw", "stage_w"))
+    assert tile_p % 8 == 0 and cb_p % 4 == 0 and bw % 16 == 0 and mw % 8 == 0
+    assert bw >= mw + 8 and mw >= kh + 7 and stage_w >= cb_p
+    chunks = stage_w // 16
+    assert chunks & (chunks - 1) == 0 and stage_w % 16 == 0
+    mask = min(chunks, 8) - 1
+    assert lay["wv"].shape == (lay["num_tiles"], win_v, tile_p // 4, 4)
+    assert lay["wh"].shape[1:] == (win_h, cb_p // 4, 4)
+    assert lay["base_v"].shape == (lay["num_tiles"], tile_p // 4)
+    assert lay["base_h"].shape == (lay["wh"].shape[0], cb_p // 4)
+    assert lay["wv"].dtype == lay["wh"].dtype == np.float32
+    assert (lay["base_v"] >= 0).all() and (lay["base_v"] + win_v <= kv).all()
+    assert (lay["base_h"] >= 0).all() and (lay["base_h"] + win_h <= kh).all()
     if dering:
         assert lay["cv"].shape == (lay["num_tiles"], 2, tile_p)
         assert lay["ch"].shape == (lay["wh"].shape[0], 2, cb_p)
@@ -203,32 +221,55 @@ def _emulate_kernel(x, lay, oh, ow, bf16, dering=False, quant=False):
     def clamp(v, a, b):
         return np.minimum(np.maximum(v, np.minimum(a, b)), np.maximum(a, b))
 
+    def window_sum(a, wts):  # a (steps, m), wts (steps, 4) -> (m, 4), in step order
+        acc = np.zeros((a.shape[1], 4), np.float32)
+        for s in range(a.shape[0]):
+            acc = acc + a[s][:, None] * wts[s][None, :]
+        return acc
+
     for p in range(nc):
         for i in range(lay["num_tiles"]):
             for b in range(lay["n_cb"]):
-                r0, c0 = lay["starts_v"][i], lay["starts_h"][b]
-                band = np.zeros((kv, kh_p), np.float32)
+                r0, c0 = int(lay["starts_v"][i]), int(lay["starts_h"][b])
+                c_a = c0 & ~15
+                joff, dj = (c0 - c_a) & 8, (c0 - c_a) & 7
+                band = np.zeros((kv, bw), np.uint8)
                 rr = np.arange(kv)[:, None] + r0
-                cc = np.arange(kh_p)[None, :] + c0
-                ok = (np.arange(kh_p)[None, :] < kh) & (rr < h) & (cc < w)
+                cc = np.arange(bw)[None, :] + c_a
+                ok = (rr < h) & (cc < w)
                 band[ok] = x[p][np.minimum(rr, h - 1), np.minimum(cc, w - 1)][ok]
-                midT = band.T @ lay["wvT"][i]  # (kh_p, tile_p)
-                if dering:
-                    cv = lay["cv"][i]
-                    midT = clamp(midT, band[cv[0]].T, band[cv[1]].T)
+                bandf = band[:, joff : joff + mw].astype(np.float32)  # (kv, mw)
+                midT = np.zeros((mw, tile_p), np.float32)
+                for rg in range(tile_p // 4):
+                    base = lay["base_v"][i, rg]
+                    acc = window_sum(bandf[base : base + win_v], lay["wv"][i, :, rg])
+                    if dering:
+                        cv = lay["cv"][i][:, 4 * rg : 4 * rg + 4]
+                        acc = clamp(acc, bandf[cv[0]].T, bandf[cv[1]].T)
+                    midT[:, 4 * rg : 4 * rg + 4] = acc
                 if quant:
                     midT = np.trunc(np.clip(midT, 0, 255))
                 if bf16:
                     midT = torch.from_numpy(midT).bfloat16().float().numpy()
                 u = lay["uniq_h"][b]
-                acc = midT[:kh].T @ lay["wh"][u]  # (tile_p, cb_p)
-                if dering:
-                    ch = lay["ch"][u]
-                    acc = clamp(acc, midT[ch[0]].T, midT[ch[1]].T)
+                stage = np.zeros((tile_p, stage_w), np.uint8)
+                for cg in range(cb_p // 4):
+                    base = dj + lay["base_h"][u, cg]
+                    assert base + win_h <= mw
+                    acc = window_sum(midT[base : base + win_h], lay["wh"][u, :, cg])
+                    if dering:
+                        ch = dj + lay["ch"][u][:, 4 * cg : 4 * cg + 4]
+                        acc = clamp(acc, midT[ch[0]].T, midT[ch[1]].T)
+                    q = np.trunc(np.clip(acc, 0, 255)).astype(np.uint8)  # (tile_p, 4)
+                    for r in range(tile_p):
+                        at = 16 * ((cg >> 2) ^ ((r >> 2) & mask)) + 4 * (cg & 3)
+                        stage[r, at : at + 4] = q[r]
                 rows = min(tile, oh - i * tile)
                 cols = min(cb, ow - b * cb)
-                q = np.trunc(np.clip(acc[:rows, :cols], 0, 255)).astype(np.uint8)
-                out[p, i * tile : i * tile + rows, b * cb : b * cb + cols] = q
+                for r in range(rows):
+                    for c in range(cols):
+                        at = 16 * ((c >> 4) ^ ((r >> 2) & mask)) + (c & 15)
+                        out[p, i * tile + r, b * cb + c] = stage[r, at]
     return out
 
 
@@ -297,6 +338,105 @@ def test_kernel_layout_reenacted_nonlinear(shape, scale, kw, tiles, precision):
     d = np.abs(got.astype(np.int32) - want.numpy().astype(np.int32))
     lim = 2 if cfg.intermediate_quantize else 1  # same rounding points, other sum order
     assert d.max() <= lim and (d > 0).mean() <= 0.01
+
+
+def expand_runs(first, taps, k):
+    """The dense ``(n, size, k)`` rows of ``compact_runs``' form."""
+    dense = np.zeros(first.shape + (k,), taps.dtype)
+    np.put_along_axis(dense, first[..., None] + np.arange(taps.shape[-1]), taps, -1)
+    return dense
+
+
+def expand_windows(base, win, k):
+    """The dense ``(n, size, k)`` rows of ``group_windows``' form."""
+    n, groups, length, group = win.shape
+    dense = np.zeros((n, groups, group, k), win.dtype)
+    idx = (base[..., None] + np.arange(length))[:, :, None, :]
+    np.put_along_axis(dense, idx, np.swapaxes(win, 2, 3), -1)
+    return dense.reshape(n, groups * group, k)
+
+
+SWEEP_SCALES = [(2, 1), (3, 1), (3, 2), (2, 3), (1, 2)]
+SWEEP_EDGES = [
+    {}, {"edge_mode": "reflect"}, {"edge_mode": "drop", "normalize": False},
+    {"align": "center"},
+]
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("kw", SWEEP_EDGES)
+@pytest.mark.parametrize("scale", SWEEP_SCALES)
+def test_compact_form_expands_to_the_dense_plan(scale, kw, precision):
+    """Each output's (first tap, run of weights) and each group of four's
+    shared window reproduce ``plan_weights``' dense matrices exactly (bf16:
+    after the sum-keeping rounding), every index inside its band."""
+    shape = (48, 66)
+    cfg = ResampleConfig.from_profile(
+        "precise", shape, scale=scale, a=3, precision=precision, **kw
+    )
+    plan = rc.plan_at(cfg, 16, 24)
+    assert plan is not None
+    wv, wh = rc.plan_weights(plan, cfg.precision)
+    first_v, taps_v, first_h, taps_h = rc.plan_runs(plan, cfg.precision)
+    assert first_v.shape == wv.shape[:2] and first_h.shape == (wh.shape[0], plan.cb)
+    assert first_v.min() >= 0 and (first_v + taps_v.shape[-1]).max() <= plan.kv
+    assert first_h.min() >= 0 and (first_h + taps_h.shape[-1]).max() <= plan.kh
+    np.testing.assert_array_equal(expand_runs(first_v, taps_v, plan.kv), wv)
+    np.testing.assert_array_equal(
+        np.swapaxes(expand_runs(first_h, taps_h, plan.kh), 1, 2), wh)
+    # a run is no longer than the filter's taps at this scale
+    n, d = scale
+    assert max(taps_v.shape[-1], taps_h.shape[-1]) <= 2 * 3 * max(1, -(-d // n)) + 1
+    lay = rc.kernel_layout(plan, cfg.precision)
+    dense_v = expand_windows(lay["base_v"], np.swapaxes(lay["wv"], 1, 2), plan.kv)
+    np.testing.assert_array_equal(dense_v[:, : plan.tile_out], wv)
+    assert not dense_v[:, plan.tile_out :].any()
+    dense_h = expand_windows(lay["base_h"], np.swapaxes(lay["wh"], 1, 2), plan.kh)
+    np.testing.assert_array_equal(np.swapaxes(dense_h[:, : plan.cb], 1, 2), wh)
+    assert not dense_h[:, plan.cb :].any()
+    assert lay["win_v"] <= taps_v.shape[-1] + 3 * max(1, -(-d // n))
+
+
+def test_compact_runs_of_a_scattered_matrix_only_grow():
+    """A hand-built matrix whose nonzeros are not one narrow run still
+    compacts exactly: the run spans first to last nonzero, and a row of
+    zeros has an empty run at 0."""
+    w = np.zeros((1, 4, 10), np.float32)
+    w[0, 0, [1, 7]] = 0.5
+    w[0, 1, 9] = 1.0
+    w[0, 3, 0] = 1.0
+    first, taps = rc.compact_runs(w)
+    assert taps.shape == (1, 4, 7) and first.tolist() == [[1, 3, 0, 0]]
+    np.testing.assert_array_equal(expand_runs(first, taps, 10), w)
+    base, win = rc.group_windows(w)
+    assert win.shape == (1, 1, 10, 4) and base.tolist() == [[0]]
+    np.testing.assert_array_equal(expand_windows(base, win, 10), w)
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("shape,scale,kw", [
+    ((21, 37), (2, 1), {}),  # odd W; OW = 74, no multiple of 16
+    ((18, 45), (3, 1), {"edge_mode": "reflect"}),  # OW = 135
+    ((22, 50), (3, 2), {"align": "center"}),  # OW = 75
+    ((12, 16), (2, 1), {}),  # one tile, one block
+])
+def test_plain_on_unaligned_widths_matches_tpu_gather(shape, scale, kw, precision):
+    """Widths that break the kernel's 16-byte paths (the plain version has
+    none, but walks the same compact form the byte paths feed)."""
+    cfg = ResampleConfig.from_profile(
+        "precise", shape, scale=scale, a=3, precision=precision, **kw
+    )
+    plan = rc.fused_plan(cfg)
+    img = _img(shape, seed=3)
+    tpu_cfg = TpuConfig.from_profile("precise", shape, scale=scale, a=3, **kw)
+    want = np.asarray(TpuUpscaler(tpu_cfg, backend="xla")(img))
+    got = rc.fused_resample_reference(_planar(img), plan, precision, cfg.out_shape)
+    _within(_interleaved(got), want, precision)
+    lay = rc.kernel_layout(plan, cfg.precision)
+    x = np.ascontiguousarray(img.transpose(2, 0, 1))
+    emu = _emulate_kernel(x, lay, *cfg.out_shape, precision == "bf16")
+    d = np.abs(emu.astype(np.int32) - got.numpy().astype(np.int32))
+    assert d.max() <= 1 and (d > 0).mean() <= 0.01
 
 
 def test_fused_call_cpu_runs_plain_version_and_counts_no_launch():

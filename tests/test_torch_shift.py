@@ -10,8 +10,10 @@ routing between the port's kernels.
   sum lands on an integer (common at 2/1 zero-aligned) its truncation can
   go either way.  The plain version is the unfused IEEE order
   (multiply, then add, in tap order), and the CUDA kernel reproduces it;
-- the CUDA kernel's host layout (tiles, band through the pad maps, masked
-  stores) through a numpy re-enactment of its loops, byte for byte;
+- the CUDA kernel's host layout (tiles of whole thread runs, the band in
+  16-byte chunks copied inside the image and mapped at its edges, its
+  realignment, the staged tile and masked stores) through a numpy
+  re-enactment of its loops, byte for byte;
 - which kernel ``FusedOps`` picks for each variant and config (v1 or
   kernel 2 exactly where ``PallasOps`` picks them), which kernel
   ``Upscaler(cfg, backend="pallas")`` runs, and which configs raise,
@@ -127,40 +129,64 @@ def _tap_sum(w, v, s, dering):
 
 def _emulate_kernel2(x, plan, oh, ow, dering, tiles):
     """Kernel 2's loops in numpy: per (column chunk, row tile, plane), the
-    uint8 band read through the pad maps (zero past the padded image),
-    the vertical pass into a float32 intermediate, then the horizontal
-    pass and a masked trunc-clip store."""
+    uint8 band in 16-byte chunks from the 16-byte boundary of the source at
+    or below the tile's first tap (a straight copy where the chunk lies
+    inside the image and W is a multiple of 16, else byte by byte through
+    the pad maps; zero past the padded image), realigned to the first tap;
+    the vertical pass into a float32 intermediate, all phases of each
+    source row; then the horizontal pass, all phases of each source column,
+    into the staged uint8 tile, and a masked store."""
     tr, tc = tiles
     nc, h, w = x.shape
     nv, nh, s = plan.nv, plan.nh, plan.support
     taps = 2 * s
-    ev, eh = tr // nv + taps, tc // nh + taps
+    assert tr % (nv * rs.RUN) == 0 and tc % (nh * 16) == 0
+    rpb, cpb = tr // nv, tc // nh
+    ev = rpb + taps
+    mwid = -(-(cpb + taps) // 4) * 4
+    bwid = -(-(mwid + 19) // 16) * 16
     hp, wp = h + taps, w + taps
-    assert tr % nv == 0 and tc % nh == 0
     assert rs.smem_bytes(plan, tr, tc) <= 227 * 1024
+    assert rs.smem_bytes(plan, tr, tc) == (
+        ev * bwid + 4 * tr * mwid + tr * tc + 4 * (nv + nh) * (taps + 1))
     out = np.full((nc, oh, ow), 7, np.uint8)  # stores must cover every pixel
     for p in range(nc):
-        for y0 in range(0, oh, tr):
-            for x0 in range(0, ow, tc):
-                r = y0 // nv + np.arange(ev)
-                c = x0 // nh + np.arange(eh)
-                sr = np.where(r < hp, plan.rows[np.minimum(r, hp - 1)], -1)
-                sc = np.where(c < wp, plan.cols[np.minimum(c, wp - 1)], -1)
-                ok = (sr[:, None] >= 0) & (sc[None, :] >= 0)
-                band = np.where(ok, x[p][np.maximum(sr, 0)[:, None], np.maximum(sc, 0)], 0)
-                band = band.astype(np.uint8).astype(np.float32)
-                mid = np.zeros((tr, eh), np.float32)
-                for rr in range(tr):
-                    ph = rr % nv
-                    e0 = rr // nv + plan.fp_v[ph] + 1
-                    mid[rr] = _tap_sum(plan.tbl_v[ph], band[e0 : e0 + taps], s, dering)
+        for by in range(-(-oh // tr)):
+            for bx in range(-(-ow // tc)):
+                y0, x0, k0, j0 = by * tr, bx * tc, by * rpb, bx * cpb
+                delta = (j0 - s) & 15
+                j_a = j0 - delta
+                band = np.zeros((ev, bwid), np.uint8)
+                for k in range(ev):
+                    sr = plan.rows[k0 + k] if k0 + k < hp else -1
+                    if sr < 0:
+                        continue
+                    for q in range(bwid // 16):
+                        jc = j_a + 16 * q
+                        if w % 16 == 0 and jc >= s and jc - s + 16 <= w:
+                            assert (jc - s) % 16 == 0
+                            assert list(plan.cols[jc : jc + 16]) == list(range(jc - s, jc - s + 16))
+                            band[k, 16 * q : 16 * q + 16] = x[p, sr, jc - s : jc - s + 16]
+                            continue
+                        for t in range(16):
+                            sc = plan.cols[jc + t] if 0 <= jc + t < wp else -1
+                            if sc >= 0:
+                                band[k, 16 * q + t] = x[p, sr, sc]
+                assert delta + mwid + 4 <= bwid  # the realigning loads read a word ahead
+                bandf = band[:, delta : delta + mwid].astype(np.float32)
+                mid = np.zeros((tr, mwid), np.float32)
+                for q in range(rpb):
+                    for ph in range(nv):
+                        e0 = q + plan.fp_v[ph] + 1
+                        mid[q * nv + ph] = _tap_sum(plan.tbl_v[ph], bandf[e0 : e0 + taps], s, dering)
+                stage = np.zeros((tr, tc), np.uint8)
+                for c in range(cpb):
+                    for ph in range(nh):
+                        f0 = c + plan.fp_h[ph] + 1
+                        v = _tap_sum(plan.tbl_h[ph], mid[:, f0 : f0 + taps].T, s, dering)
+                        stage[:, c * nh + ph] = np.trunc(np.clip(v, 0.0, 255.0)).astype(np.uint8)
                 rows_n, cols_n = min(tr, oh - y0), min(tc, ow - x0)
-                for cc in range(cols_n):
-                    ph = cc % nh
-                    f0 = cc // nh + plan.fp_h[ph] + 1
-                    v = _tap_sum(plan.tbl_h[ph], mid[:rows_n, f0 : f0 + taps].T, s, dering)
-                    q = np.trunc(np.clip(v, 0.0, 255.0)).astype(np.uint8)
-                    out[p, y0 : y0 + rows_n, x0 + cc] = q
+                out[p, y0 : y0 + rows_n, x0 : x0 + cols_n] = stage[:rows_n, :cols_n]
     return out
 
 
@@ -169,6 +195,10 @@ def _emulate_kernel2(x, plan, oh, ow, dering, tiles):
     ((23, 37), (69, 111), {"dering": True, "align": "center", "edge_mode": "reflect"}, 2),
     ((20, 70), (40, 280), {"edge_mode": "drop", "normalize": False}, 2),  # ragged chunks
     ((9, 11), (144, 176), {"dering": True}, 1),  # N = 16, whole image in one band
+    ((40, 160), (80, 320), {"dering": True}, 1),  # W % 16 == 0: copied chunks, 3 tiles wide
+    ((36, 96), (144, 384), {"edge_mode": "reflect"}, 1),  # 4/1, copied and mapped chunks
+    ((70, 48), (210, 144), {"dering": True, "align": "center"}, 1),  # 3/1, 4 row tiles
+    ((20, 33), (100, 165), {}, 1),  # 5/1: a phase count the thread runs only loop over
 ])
 def test_kernel2_layout_reenacted(shape, out, kw, planes):
     cfg = ResampleConfig.from_profile("precise", shape, out_shape=out, a=3, **kw)
@@ -181,11 +211,13 @@ def test_kernel2_layout_reenacted(shape, out, kw, planes):
 
 def test_kernel_tiles_shrink_to_fit_shared_memory():
     plan = rs.shift_plan(_cfg(dering=True))
-    assert rs.kernel_tiles(plan) == (32, 128)
+    assert rs.kernel_tiles(plan) == (64, 128)
+    assert rs.kernel_tiles(rs.shift_plan(_cfg(scale=(3, 1)))) == (60, 96)
+    assert rs.kernel_tiles(rs.shift_plan(_cfg(scale=(16, 1)))) == (64, 256)
     big = rs.shift_plan(_cfg(in_shape=(400, 400), a=200, dering=True))
-    assert rs.smem_bytes(big, 32, 128) > 227 * 1024
+    assert rs.smem_bytes(big, 32, 64) > 227 * 1024
     tr, tc = rs.kernel_tiles(big)
-    assert (tr, tc) == (16, 64) and rs.smem_bytes(big, tr, tc) <= 227 * 1024
+    assert (tr, tc) == (16, 32) and rs.smem_bytes(big, tr, tc) <= 227 * 1024
     huge = ResampleConfig.from_profile("precise", (700, 700), scale=(2, 1), a=300,
                                        dering=True)
     assert rs.kernel_tiles(rs.shift_plan(huge)) is None
@@ -209,7 +241,9 @@ def test_shift_call_cpu_runs_plain_version_and_counts_no_launch():
 
 # ---- routing ---------------------------------------------------------------
 
-_BIG_A = dict(in_shape=(300, 300), scale=(2, 1), a=130)  # no fused plan fits
+# no fused plan fits (its band and the window weights of its smallest tile
+# outgrow shared memory), kernel 2's smallest tile still does
+_BIG_A = dict(in_shape=(480, 480), scale=(2, 1), a=215)
 
 
 def _cfg(in_shape=(24, 20), scale=(2, 1), a=3, profile="precise", **kw):
@@ -303,9 +337,9 @@ def test_no_plan_variants_follow_pallas_v2(kw, variant):
 
 
 @pytest.mark.parametrize("shape,out,a,variant,kernel", [
-    ((288, 480), (18, 30), 3, "v1", "phase_resample_fp32"),  # 1/16: no fused plan
+    ((640, 800), (40, 50), 3, "v1", "phase_resample_fp32"),  # 1/16: no fused plan
     ((24, 20), (48, 40), 3, "mxu", "fused_resample_fp32"),  # 2/1: the fused plan
-    ((300, 300), (600, 600), 130, "v2", "shift_resample"),  # integer, no fused plan
+    ((480, 480), (960, 960), 215, "v2", "shift_resample"),  # integer, no fused plan
 ])
 def test_pallas_backend_routes_as_pallas_auto(shape, out, a, variant, kernel):
     """``Upscaler(cfg, backend="pallas")`` routes as ``PallasOps(variant=
