@@ -16,9 +16,15 @@ not 0:
    with the quantized intermediate and with both, fp32 and bf16; kernel 2
    (v2) at 2/1, 3/1, 4/1, 5/1, center-aligned and reflect, widths that
    are and are not multiples of 16, supports 2, 3 and 4, dering on and
-   off; the v1 kernel (3/2, 2/3, 1/16, mixed integer and rational axes,
-   reflect, drop) and every ablation kernel (the dense design of the
-   fused kernel), fp32 and bf16;
+   off; the v1 kernels, every design and instantiation, each also with
+   the generic design forced (the window design's compile-time pairs,
+   its run-time form at center alignment, 5/4, supports 2 and 4 and a
+   pair that is not built; the streamed design at 4, 6 and 8 live rows
+   with reflect and zero edges, a support larger than the image, ragged
+   stripes and chunks and a width that is not a multiple of 16, its two
+   kernels also each against its own plain version; the generic design at
+   2/3 and 37/25 by 61/41), six planes, and every ablation kernel (the
+   dense design of the fused kernel), fp32 and bf16;
 4. the main path: ``lanczos_torch.upscale(img, scale=(2, 1),
    profile="precise", a=3)`` on a seeded 2160×3840×3 uint8 frame in fp32
    and bf16, with the kernel's launch counts, held against a float64
@@ -37,8 +43,11 @@ not 0:
    no fused plan) through ``upscale(..., backend="pallas")``, FSR's
    "Quality" 1440p→4K (3/2) and a 4/3 anamorphic desqueeze (2160×2880 →
    2160×3840) through ``FusedOps(variant="v1")``; each against its plain
-   version and a float64 gather;
-9. times of the v1 kernel and its plain version on those three;
+   version and a float64 gather, then again with the generic design
+   forced (``design="generic"``: the kernel v1 had first), and the
+   streamed design's two kernels each against its own plain version;
+9. times of the v1 kernels, of the forced generic design beside them
+   (their ``earlier_ms``) and of the plain versions on those three;
 10. the ablation harness of the dense fused kernel
    (``lanczos_torch.tools.ablate_fused``) over every variant at 4K→8K, 12
    planes: each byte-equal to its dense plain version, held to the
@@ -64,7 +73,10 @@ LSB: one flipped intermediate value spreads over the taps); bf16 ≤ 3 LSB
 on ≤ 50% of pixels; kernel 2, the v1 kernel and the ablation kernels and
 their plain versions identical bytes; the bit-exact profiles identical
 bytes; float output |Δ| ≤ 1e-3 (values 0–255).  The last lines are one
-JSON object of the kernels and one of the device.  Each kernel's
+JSON object of the kernels and one of the device.  A v1 kernel's
+``earlier_ms`` is the forced generic design's time on the same frame in
+the same run (for the streamed design's two kernels, of the whole
+resample they replace together).  Each kernel's
 ``bound_ms`` is the least time the card could take for its call: the
 larger of its compulsory bytes (input read once, output written once)
 over 3.35 TB/s and its needed multiply-adds (2·support·max(1, D/N) a
@@ -541,27 +553,73 @@ def main() -> None:
             torch.cuda.synchronize()
             compare(f"{ops.kernel} {name}{' dering' if dering else ''}", got, want,
                     "exact")
+    from lanczos_torch.ops import resample_phase_cuda as rp
+
     v1_cases = [  # name, (h, w), out, overrides
         ("3/2 24x40", (24, 40), (36, 60), {}),
-        ("2/3 align=center 36x60", (36, 60), (24, 40), {"align": "center"}),
-        ("1/16 256x256 (support 48)", (256, 256), (16, 16), {}),
-        ("1/16 384x384 (the tile shrinks)", (384, 384), (24, 24), {}),
-        ("2/1 by 3/2 reflect 24x40", (24, 40), (48, 60), {"edge_mode": "reflect"}),
+        ("2/3 align=center 36x60 (generic)", (36, 60), (24, 40), {"align": "center"}),
+        ("37/25 by 61/41 25x41 (generic)", (25, 41), (37, 61), {}),
         ("3/2 by 1/1 drop 24x40", (24, 40), (36, 40),
          {"edge_mode": "drop", "normalize": False}),
+        ("3/2, 16-byte chunks, 3x3 blocks 96x160", (96, 160), (144, 240), {}),
+        ("4/3 81x144", (81, 144), (108, 192), {}),
+        ("1/1 by 4/3 70x96", (70, 96), (70, 128), {}),
+        ("4/3 by 1/1, W % 16 != 0 81x100", (81, 100), (108, 100), {}),
+        ("1/1 by 3/2 reflect 50x64", (50, 64), (50, 96), {"edge_mode": "reflect"}),
+        ("2/1 by 3/2 reflect 24x40", (24, 40), (48, 60), {"edge_mode": "reflect"}),
+        ("3/2 by 2/1 40x70", (40, 70), (60, 140), {}),
+        ("3/2 align=center 90x120 (run-time form)", (90, 120), (135, 180),
+         {"align": "center"}),
+        ("5/4 48x80 (run-time form)", (48, 80), (60, 100), {}),
+        ("3/2 support 2 48x80 (run-time form)", (48, 80), (72, 120), {"a": 2}),
+        ("3/2 support 4 drop 34x46 (run-time form)", (34, 46), (51, 69),
+         {"a": 4, "edge_mode": "drop", "normalize": False}),
+        ("3/2 by 4/3 60x90 (no such pair: run-time form)", (60, 90), (90, 120), {}),
+        ("1/16 256x256 (support 48)", (256, 256), (16, 16), {}),
+        ("1/16 384x384 (ragged chunks)", (384, 384), (24, 24), {}),
         ("1/16 reflect 32x48 (support > image)", (32, 48), (2, 3), {"edge_mode": "reflect"}),
+        ("1/4, second stripe of 80 columns 512x208", (512, 208), (128, 52), {}),
+        ("1/4 by 1/2, W % 16 != 0 128x50", (128, 50), (32, 25), {}),
+        ("1/8 by 1/4 drop 128x64", (128, 64), (16, 16),
+         {"edge_mode": "drop", "normalize": False}),
+        ("1/4 align=center 128x64", (128, 64), (32, 16), {"align": "center"}),
+        ("1/8 by 3/2 support 2 (4 live rows) 128x48", (128, 48), (16, 72), {"a": 2}),
+        ("1/5 by 1/1 support 4 (8 live rows) 160x32", (160, 32), (32, 32), {"a": 4}),
+        ("1/16 by 1/1 reflect, six stripes 640x700", (640, 700), (40, 700),
+         {"edge_mode": "reflect"}),
     ]
+    reached = set()
     for precision in ("fp32", "bf16"):
         for name, (h, w), out, kw in v1_cases:
+            kw = dict(kw)
             cfg = lanczos_torch.ResampleConfig.from_profile(
-                "precise", (h, w), out_shape=out, a=3, precision=precision, **kw
+                "precise", (h, w), out_shape=out, a=kw.pop("a", 3), precision=precision, **kw
             )
-            ops = rc.FusedOps(cfg, "cuda", variant="v1")
-            x = torch.from_numpy(rng.integers(0, 256, (3, h, w), dtype=np.uint8)).cuda()
-            got = rc.upscale_planar(x, ops)
-            want = plain_version(x, ops)
-            torch.cuda.synchronize()
-            compare(f"{precision} {ops.kernel} {name}", got, want, "exact")
+            x = torch.from_numpy(rng.integers(0, 256, (6, h, w), dtype=np.uint8)).cuda()
+            auto = rc.FusedOps(cfg, "cuda", variant="v1")
+            want = plain_version(x, auto)
+            for ops in (auto, rc.FusedOps(cfg, "cuda", variant="v1", design="generic")):
+                got = rc.upscale_planar(x, ops)
+                torch.cuda.synchronize()
+                compare(f"{precision} v1 {ops.phase.design} {name}", got, want, "exact")
+            pops = auto.phase
+            templ = pops.layout.get("templ")
+            reached.add((pops.kernels, templ, (
+                pops.plan.v.n, pops.plan.v.d, pops.plan.h.n, pops.plan.h.d) if templ else None))
+            if pops.design == "stream":  # each of its kernels against its own plain version
+                mid = rp.stream_v_call(pops, x, rpc=5)
+                want_mid = rp.stream_v_reference(x, pops.plan, precision, out[0])
+                torch.cuda.synchronize()
+                if mid.dtype != want_mid.dtype or not torch.equal(mid, want_mid):
+                    raise AssertionError(f"{name}: phase_stream_v differs from its plain version")
+                compare(f"{precision} phase_stream_h alone {name}", rp.stream_h_call(pops, mid),
+                        rp.stream_h_reference(want_mid, pops.plan, precision, out[1]), "exact")
+    pairs = {k[2] for k in reached if k[1]}
+    print(f"  v1 instantiations reached: {len(reached)}; compile-time window pairs "
+          f"{sorted(pairs)}", flush=True)
+    built = {(nv, dv, nh, dh) for (nv, dv), (nh, dh) in rp.WINDOW_PAIRS}
+    if pairs != built:
+        raise AssertionError(f"the sweep missed window pairs {built - pairs}")
     from lanczos_torch.tools import ablate_fused as af
 
     for precision in ("fp32", "bf16"):
@@ -778,6 +836,7 @@ def main() -> None:
             ops = rc.FusedOps(cfg, "cuda", variant=variant)
             if ops.variant != "v1" or ops.plan is not None:
                 raise AssertionError(f"{name}: runs {ops.kernel}, not v1")
+            pops = ops.phase
             torch.cuda.synchronize()
             reset_counts()
             if via == "pallas":
@@ -787,17 +846,43 @@ def main() -> None:
                 y = rc.resample_2d_cuda(xin, ops)
             torch.cuda.synchronize()
             n = read_counts()
-            print(f"  {p} {name} ({ops.kernel}, tiles {ops.phase.tiles}): launches {n}",
-                  flush=True)
-            if n != {ops.kernel: 1}:
-                raise AssertionError(f"{name}: expected one launch of {ops.kernel}, got {n}")
+            print(f"  {p} {name} ({pops.design}: {', '.join(pops.kernels)}; layout "
+                  f"{pops.layout}): launches {n}", flush=True)
+            if n != {k: 1 for k in pops.kernels}:
+                raise AssertionError(
+                    f"{name}: expected one launch each of {pops.kernels}, got {n}")
             if tuple(y.shape) != out + (3,) or y.dtype != torch.uint8 or not y.is_cuda:
                 raise AssertionError(f"{name}: got {tuple(y.shape)} {y.dtype} {y.device}")
             want = plain_version(planar_in, ops).permute(1, 2, 0)
             err, _ = compare(f"{p} {name} vs plain version", y, want, "exact")
-            v1_runs.append((name, p, ops, planar_in, y.cpu().numpy(), ref, err))
-            del y, want
-    for name, p, ops, _, y, ref, _ in v1_runs:
+            # the generic design forced (the kernel v1 had first), through the same entry
+            gen = rc.FusedOps(cfg, "cuda", variant="v1", design="generic")
+            reset_counts()
+            yg = rc.resample_2d_cuda(xin, gen)
+            torch.cuda.synchronize()
+            if read_counts() != {gen.kernel: 1}:
+                raise AssertionError(f"{name}: forced generic launched {read_counts()}")
+            compare(f"{p} {name} forced generic (tiles {gen.phase.layout}) vs plain version",
+                    yg, want, "exact")
+            errs_ab = None
+            if pops.design == "stream":  # each of the two kernels against its own
+                mid = rp.stream_v_call(pops, planar_in)
+                want_mid = rp.stream_v_reference(planar_in, pops.plan, p, out[0])
+                torch.cuda.synchronize()
+                err_v = float((mid.float() - want_mid.float()).abs().max())
+                print(f"  {p} {name}: phase_stream_v vs its plain version max|d|={err_v:g} "
+                      f"({'ok' if err_v == 0 else 'FAIL'})", flush=True)
+                if mid.dtype != want_mid.dtype or err_v != 0:
+                    raise AssertionError(f"{name}: phase_stream_v differs from its plain version")
+                err_h, _ = compare(
+                    f"{p} {name}: phase_stream_h vs its plain version",
+                    rp.stream_h_call(pops, mid),
+                    rp.stream_h_reference(want_mid, pops.plan, p, out[1]), "exact")
+                errs_ab = (err_v, err_h)
+                del mid, want_mid
+            v1_runs.append((name, p, ops, gen, planar_in, y.cpu().numpy(), ref, err, errs_ab))
+            del y, yg, want
+    for name, p, _, _, _, y, ref, _, _ in v1_runs:
         compare(f"{p} {name} vs float64 gather", y, ref.result(), p)
     print(f"  float64 numpy gather references (3, in parallel): "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -806,28 +891,73 @@ def main() -> None:
 
     # ---- 9. v1 times
     print("== 9. v1 times (3 planes, CUDA events, mean of 20 after 3 warm-up; order "
-          "plain, kernel, kernel, plain)", flush=True)
+          "plain, generic, kernel, kernel, generic, plain)", flush=True)
     v1_entries = {}
-    for name, p, ops, planar_in, _, _, err in v1_runs:
+
+    def v1_entry(kernel, err, ms, plain_ms, bnd, earlier):
+        # the first shape that launches a kernel gives its times and its bound
+        e = v1_entries.setdefault(kernel, dict(
+            entry(kernel, "phase_resample.cu", "lanczos_tpu/ops/resample_pallas.py:687", 0, 0,
+                  ms, plain_ms, bnd), earlier_ms=earlier))
+        e["launches"] += 1
+        e["max_abs_err"] = max(e["max_abs_err"], err)
+
+    for name, p, ops, gen, planar_in, _, _, err, errs_ab in v1_runs:
+        pops = ops.phase
+
         def kernel_fn():
             return rc.upscale_planar(planar_in, ops)
+
+        def generic_fn():
+            return rc.upscale_planar(planar_in, gen)
 
         def plain_fn():
             return plain_version(planar_in, ops)
 
-        t = [cuda_time_ms(f) for f in (plain_fn, kernel_fn, kernel_fn, plain_fn)]
-        print(f"  {p} {name} ({ops.kernel}): kernel {t[1]:.4f} / {t[2]:.4f} ms/frame, "
-              f"plain version {t[0]:.4f} / {t[3]:.4f} ms/frame [{smi}]", flush=True)
+        t = [cuda_time_ms(f) for f in (plain_fn, generic_fn, kernel_fn, kernel_fn, generic_fn,
+                                       plain_fn)]
+        ms, gen_ms, plain_ms = (t[2] + t[3]) / 2, (t[1] + t[4]) / 2, (t[0] + t[5]) / 2
         bnd = bound(ops.cfg, 3)
+        print(f"  {p} {name} ({pops.design}): kernel {t[2]:.4f} / {t[3]:.4f} ms/frame, "
+              f"generic design forced {t[1]:.4f} / {t[4]:.4f}, plain version {t[0]:.4f} / "
+              f"{t[5]:.4f} [{smi}]", flush=True)
         print(f"    bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']} "
               f"({bnd['bytes'] / 1e6:.1f} MB, {bnd['flops'] / 2e9:.2f} G multiply-adds): "
-              f"{(t[1] + t[2]) / 2 / bnd['bound_ms']:.1f}x", flush=True)
-        # the times and the bound of the thumbnail, the path that only v1 takes
-        v1 = v1_entries.setdefault(ops.kernel, entry(
-            ops.kernel, "phase_resample.cu", "lanczos_tpu/ops/resample_pallas.py:687", 0, 0,
-            (t[1] + t[2]) / 2, (t[0] + t[3]) / 2, bnd))
-        v1["launches"] += 1
-        v1["max_abs_err"] = max(v1["max_abs_err"], err)
+              f"{ms / bnd['bound_ms']:.1f}x now, {gen_ms / bnd['bound_ms']:.1f}x generic; "
+              f"{bnd['bytes'] / (ms * 1e-3) / 1e9:.0f} GB/s", flush=True)
+        if ms > gen_ms:
+            raise AssertionError(
+                f"{name}: the {pops.design} design ({ms:.4f} ms) is slower than the generic "
+                f"one ({gen_ms:.4f} ms): the selector must send this shape there")
+        v1_entry(gen.kernel, err, gen_ms, plain_ms, bnd, gen_ms)
+        if errs_ab is None:
+            v1_entry(pops.kernels[0], err, ms, plain_ms, bnd, gen_ms)
+            continue
+        # the streamed design's two kernels, each alone, each with its own bound: the
+        # intermediate (nc, OH, W) is written once by the first and read once by the second
+        plan, (ih, iw), (oh, ow) = pops.plan, ops.cfg.in_shape, ops.cfg.out_shape
+        mid = rp.stream_v_call(pops, planar_in)
+        want_mid = rp.stream_v_reference(planar_in, plan, p, oh)
+        mid_bytes = 3 * oh * iw * mid.element_size()
+        halves = [
+            (pops.kernels[0], errs_ab[0], lambda: rp.stream_v_call(pops, planar_in),
+             lambda: rp.stream_v_reference(planar_in, plan, p, oh),
+             3 * ih * iw + mid_bytes, 2.0 * 3 * oh * iw * 2 * plan.v.support),
+            (pops.kernels[1], errs_ab[1], lambda: rp.stream_h_call(pops, mid),
+             lambda: rp.stream_h_reference(want_mid, plan, p, ow),
+             mid_bytes + 3 * oh * ow, 2.0 * 3 * oh * ow * 2 * plan.h.support),
+        ]
+        for kernel, kerr, kfn, pfn, nbytes, flops in halves:
+            tt = [cuda_time_ms(f) for f in (pfn, kfn, kfn, pfn)]
+            t_b = nbytes / (HBM_TBPS * 1e12) * 1e3
+            t_f = flops / (FP32_PEAK_TFLOPS * 1e12) * 1e3
+            kb = dict(bound_ms=max(t_b, t_f), bound_by="bytes" if t_b >= t_f else "operations")
+            print(f"    {kernel} alone: {tt[1]:.4f} / {tt[2]:.4f} ms, its plain version "
+                  f"{tt[0]:.4f} / {tt[3]:.4f}; bound {kb['bound_ms']:.4f} ms by "
+                  f"{kb['bound_by']} ({nbytes / 1e6:.1f} MB, {flops / 2e9:.2f} G "
+                  f"multiply-adds)", flush=True)
+            v1_entry(kernel, kerr, (tt[1] + tt[2]) / 2, (tt[0] + tt[3]) / 2, kb, gen_ms)
+        del mid, want_mid
     kernels += list(v1_entries.values())
     del v1_runs
     torch.cuda.empty_cache()

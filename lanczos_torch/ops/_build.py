@@ -106,8 +106,14 @@ def library() -> ctypes.CDLL:
     lib.lanczos_fused_resample.restype = i32
     lib.lanczos_shift_resample.argtypes = [ptr] * 8 + [i32] * 11 + [ptr]
     lib.lanczos_shift_resample.restype = i32
-    lib.lanczos_phase_resample.argtypes = [ptr] * 10 + [i32] * 12 + [ptr]
+    lib.lanczos_phase_resample.argtypes = [ptr] * 10 + [i32] * 14 + [ptr]
     lib.lanczos_phase_resample.restype = i32
+    lib.lanczos_phase_window.argtypes = [ptr] * 8 + [i32] * 19 + [ptr]
+    lib.lanczos_phase_window.restype = i32
+    lib.lanczos_phase_stream_v.argtypes = [ptr] * 4 + [i32] * 9 + [ptr]
+    lib.lanczos_phase_stream_v.restype = i32
+    lib.lanczos_phase_stream_h.argtypes = [ptr] * 6 + [i32] * 9 + [ptr]
+    lib.lanczos_phase_stream_h.restype = i32
     lib.lanczos_ablate_fused.argtypes = [ptr] * 7 + [i32] * 16 + [ptr]
     lib.lanczos_ablate_fused.restype = i32
     lib.lanczos_cuda_error_string.argtypes = [i32]

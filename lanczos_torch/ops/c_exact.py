@@ -138,14 +138,37 @@ def _combine(srcs, tbl: _AxisTables, ex):
     return torch.where(ex(tbl.is_walk), walk, frac)
 
 
+# The passes run over bands of their output index: a band's int64
+# temporaries (the 2a gathered sources and _combine's lattice sum, walk and
+# grid values, about _BAND_LIVE tensors of the band's size alive at once)
+# stay under BAND_BYTES, so the peak no longer grows with the frame.
+BAND_BYTES = 1 << 30
+_BAND_LIVE = 20
+
+
+def _band_rows(trailing: int) -> int:
+    """Output rows of one band of a pass whose rows hold ``trailing``
+    values each."""
+    return max(1, BAND_BYTES // (_BAND_LIVE * 8 * max(1, trailing)))
+
+
 def _exact_pass_axis0(x, tbl: _AxisTables):
-    """Vectorized exact pass along axis 0.  x: (in, ...) integer tensor;
-    ``tbl`` holds tensors on x's device."""
-    xi = x.to(torch.int64)
+    """Vectorized exact pass along axis 0, banded over the output index.
+    x: (in, ...) integer tensor; ``tbl`` holds tensors on x's device.  Each
+    output row depends only on ``x``, so the bands' bytes are the unbanded
+    pass's."""
     tail = (1,) * (x.dim() - 1)
-    srcs = [xi.index_select(0, tbl.idx[:, j]) for j in range(tbl.idx.shape[1])]
-    del xi
-    return _combine(srcs, tbl, lambda col: col.reshape((-1,) + tail)).to(torch.uint8)
+    out_n = tbl.idx.shape[0]
+    step = _band_rows(x[0].numel())
+    out = torch.empty((out_n,) + tuple(x.shape[1:]), dtype=torch.uint8, device=x.device)
+    for lo in range(0, out_n, step):
+        band = _AxisTables(*(v[lo : lo + step] for v in tbl))
+        srcs = [x.index_select(0, band.idx[:, j]).to(torch.int64)
+                for j in range(band.idx.shape[1])]
+        out[lo : lo + step] = _combine(
+            srcs, band, lambda col: col.reshape((-1,) + tail)).to(torch.uint8)
+        del srcs
+    return out
 
 
 def _exact_single_row(y: int, srcs, tbl: _AxisTables):

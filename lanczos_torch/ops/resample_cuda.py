@@ -658,7 +658,8 @@ class FusedOps:
     raises.  A width-first config with dering or the quantized
     intermediate holds the ops of its :func:`transposed_cfg` (``tr_ops``)
     and runs on the transposed image.  ``plan`` is a hand-built fused plan
-    (checked against the config).
+    (checked against the config); ``design`` goes to v1's ``PhaseOps``
+    (``"generic"`` forces its first design: tests and timing).
 
     ``variant`` (``"mxu"``, ``"v2"`` or ``"v1"``) and ``kernel`` then name
     what runs; of ``plan`` (the fused plan), ``shift`` (kernel 2's ops) and
@@ -668,7 +669,7 @@ class FusedOps:
 
     def __init__(
         self, cfg: ResampleConfig, device="cuda", plan: Optional[FusedPlan] = None,
-        variant: str = "auto",
+        variant: str = "auto", design: str = "auto",
     ):
         if variant not in VARIANTS:
             raise ValueError(f"unknown variant {variant!r}; one of {VARIANTS}")
@@ -689,7 +690,7 @@ class FusedOps:
         if tcfg is not cfg:
             if variant == "auto" and plan is None and fused_plan(tcfg) is None:
                 raise NotImplementedError(_no_plan(cfg))
-            self.tr_ops = FusedOps(tcfg, self.device, plan, variant)
+            self.tr_ops = FusedOps(tcfg, self.device, plan, variant, design)
             for k in ("plan", "shift", "phase", "variant", "kernel"):
                 setattr(self, k, getattr(self.tr_ops, k))
             return
@@ -708,7 +709,7 @@ class FusedOps:
                 self.variant, self.kernel = "v2", "shift_resample"
                 self.shift = ShiftOps(cfg, self.device)
             else:
-                self.phase = PhaseOps(cfg, self.device)
+                self.phase = PhaseOps(cfg, self.device, design=design)
                 self.variant, self.kernel = "v1", self.phase.kernel
             return
         bf16 = cfg.precision == Precision.BF16

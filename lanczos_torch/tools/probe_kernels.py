@@ -1,14 +1,17 @@
-"""Where the time of the two redesigned kernels goes, on the H100.
+"""Where the time of the redesigned kernels goes, on the H100.
 
-    python -m lanczos_torch.tools.probe_kernels [fused] [shift] [sweep]
+    python -m lanczos_torch.tools.probe_kernels [fused] [shift] [sweep] [phase]
 
-Each probe is the production source (``csrc/fused_resample.cu`` or
-``csrc/shift_resample.cu``) with one piece of text substituted, built by
-``nvcc`` into a library of its own and timed at 4K→8K (3 planes of
-2160×3840 → 4320×7680, Lanczos-3, uniform noise from
-``numpy.random.default_rng(0)``) beside the production kernel, through the
-same launch arguments.  A probe's output is wrong by design; only its time
-and its registers are read.
+(``stream`` and ``window`` are the two halves of ``phase``.)
+
+Each probe is the production source (``csrc/fused_resample.cu``,
+``csrc/shift_resample.cu`` or ``csrc/phase_resample.cu``) with one piece of
+text substituted, built by ``nvcc`` into a library of its own and timed
+beside the production kernel, through the same launch arguments: the fused
+kernel and kernel 2 at 4K→8K (3 planes of 2160×3840 → 4320×7680), v1 at
+its three full-width shapes (Lanczos-3, uniform noise from
+``numpy.random.default_rng(0)``).  A probe's output is wrong by design;
+only its time and its registers are read.
 
 ``fused`` (linear fp32, and fp32 dering):
 
@@ -27,6 +30,21 @@ and its registers are read.
 
 ``sweep``: the production fused kernel on plans of other row tiles and
 column blocks (``plan_at``).
+
+``phase`` (v1, fp32 and bf16): at 8K→480×270 the streamed design's two
+kernels: ``empty``, ``loads`` (the copies and the walk without the
+arithmetic; for the second kernel the staged band without the tap chains),
+rings of 2 and 4 stages, stages of 16 and 64 rows, the row loop unrolled by
+2 and 8 and blocks of 2 and 4 warps for the first, 16 band loads in flight a
+thread instead of 4 and blocks of 8 and 32 columns (run-time arguments)
+for the second, and the first kernel at other chunks of output rows (a
+run-time argument); at
+1440p→4K and 2160×2880→4K the window design: ``empty``, ``loads``,
+``novert``, ``nohoriz``, ``blocks5`` / ``blocks6`` (102 / 85 registers), and
+its run-time form on the same plan; and at all three the generic design
+forced, which at the thumbnail is also the one-kernel alternative to the
+streamed design's two (a tile a block, band and intermediate in shared
+memory).
 
 Times are CUDA events around 50 direct calls of the library function after
 5 warm-up calls (the Python wrapper is not in the loop), ms per 3-plane
@@ -49,6 +67,7 @@ import torch
 from lanczos_torch.core.config import ResampleConfig
 from lanczos_torch.ops import _build
 from lanczos_torch.ops import resample_cuda as rc
+from lanczos_torch.ops import resample_phase_cuda as rp
 from lanczos_torch.ops import resample_shift_cuda as rs
 from lanczos_torch.tools.ablate_fused import FRAME_IN, card
 
@@ -86,9 +105,58 @@ SHIFT_PROBES = {
     "threads256": [("constexpr int kThreads = 128;", "constexpr int kThreads = 256;"),
                    ("__launch_bounds__(kThreads, 6)", "__launch_bounds__(kThreads, 3)")],
 }
+_ENTRY_W = ("  extern __shared__ uint4 smem16[];\n"
+            "  const int taps_v = 2 * g.sv, taps_h = 2 * g.sh;")
+_ENTRY_SV = "  constexpr int LW = (LIVE + 3) / 4 * 4;\n  extern __shared__ uint4 smem16[];"
+_ENTRY_SH = ("  extern __shared__ float4 smem4[];\n"
+             "  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;\n"
+             "  const int es = g.eh | 1;")
+_BOUNDS_W = "__launch_bounds__(kWinThreads, 4)"
+# library function -> name -> [(text in csrc/phase_resample.cu, its replacement), ...]
+PHASE_PROBES = {
+    "lanczos_phase_window": {
+        "empty": [(_ENTRY_W, _RETURN + _ENTRY_W)],
+        "loads": [("  cp_async_wait_all();\n  __syncthreads();\n\n  if constexpr (VA::N > 0) {",
+                   "  cp_async_wait_all();\n  __syncthreads();\n" + _RETURN
+                   + "  if constexpr (VA::N > 0) {")],
+        "novert": [("it < (g.pv / K) * ng; it += kWinThreads", "it < 0; it += kWinThreads")],
+        "nohoriz": [("it < (tr >> 1) * ng; it += kWinThreads", "it < 0; it += kWinThreads")],
+        "blocks5": [(_BOUNDS_W, "__launch_bounds__(kWinThreads, 5)")],
+        "blocks6": [(_BOUNDS_W, "__launch_bounds__(kWinThreads, 6)")],
+    },
+    "lanczos_phase_stream_v": {
+        "empty": [(_ENTRY_SV, _RETURN + _ENTRY_SV)],
+        "loads": [("    const int nr = min(kStageRows, nrows - s * kStageRows);",
+                   "    const int nr = 0;")],
+        "stages2": [("constexpr int kStages = 3;", "constexpr int kStages = 2;")],
+        "stages4": [("constexpr int kStages = 3;", "constexpr int kStages = 4;")],
+        "rows16": [("constexpr int kStageRows = 32;", "constexpr int kStageRows = 16;")],
+        "rows64": [("constexpr int kStageRows = 32;", "constexpr int kStageRows = 64;")],
+        "unroll2": [("#pragma unroll 4\n    for (int row = 0; row < nr; ++row) {",
+                     "#pragma unroll 2\n    for (int row = 0; row < nr; ++row) {")],
+        "unroll8": [("#pragma unroll 4\n    for (int row = 0; row < nr; ++row) {",
+                     "#pragma unroll 8\n    for (int row = 0; row < nr; ++row) {")],
+        "warps2": [("constexpr int kStreamWarps = 1;", "constexpr int kStreamWarps = 2;")],
+        "warps4": [("constexpr int kStreamWarps = 1;", "constexpr int kStreamWarps = 4;")],
+    },
+    "lanczos_phase_stream_h": {
+        "empty": [(_ENTRY_SH, "  if (g.OH > 0) return;\n" + _ENTRY_SH)],
+        "loads": [("  __syncthreads();\n  if (lane < rows_n) {",
+                   "  __syncthreads();\n  if (g.OH > 0) return;\n  if (lane < rows_n) {")],
+        "batch16": [("constexpr int kHBatch = 4; ", "constexpr int kHBatch = 16;")],
+    },
+}
+STREAM_CHUNKS = (14, 18, 23, 27, 30, 34, 39, 45, 68, 135, 270)  # output rows a chunk of the streamed pass
+# v1's full-width shapes: name, input, output
+PHASE_SHAPES = (("8K->480x270", (4320, 7680), (270, 480)),
+                ("1440p->4K", (1440, 2560), (2160, 3840)),
+                ("2160x2880->4K", (2160, 2880), (2160, 3840)))
 SWEEP = ((64, 128), (64, 256), (128, 128), (96, 128), (32, 256), (32, 128), (128, 256))
 SOURCES = {"lanczos_fused_resample": "fused_resample.cu",
-           "lanczos_shift_resample": "shift_resample.cu"}
+           "lanczos_shift_resample": "shift_resample.cu",
+           **{fn: "phase_resample.cu" for fn in (
+               "lanczos_phase_resample", "lanczos_phase_window",
+               "lanczos_phase_stream_v", "lanczos_phase_stream_h")}}
 
 
 def probe_source(function: str, subs: list) -> str:
@@ -163,10 +231,76 @@ def frame_cfg(**kw) -> ResampleConfig:
     return ResampleConfig.from_profile("precise", FRAME_IN, scale=(2, 1), a=3, **kw)
 
 
+def probe_phase(lib, tmp: Path, smi: str, designs=("stream", "window")) -> None:
+    """The ``phase`` group: v1's designs at their full-width shapes (only
+    the shapes that ``designs`` take)."""
+    built = {}  # (function, probe) -> (library function, ptxas summary)
+
+    def probe(function, name):
+        if (function, name) not in built:
+            built[function, name] = build_probe(
+                function, PHASE_PROBES[function][name], tmp, f"{function}_{name}")
+        return built[function, name]
+
+    for shape_name, shp, out in PHASE_SHAPES:
+        x = torch.from_numpy(
+            np.random.default_rng(0).integers(0, 256, (3,) + shp, np.uint8)).cuda()
+        for precision in ("fp32", "bf16"):
+            cfg = ResampleConfig.from_profile("precise", shp, out_shape=out, a=3,
+                                              precision=precision)
+            tag = f"phase {shape_name} {precision}"
+            ops = rp.PhaseOps(cfg, "cuda")
+            if ops.design not in designs:
+                continue
+            gen = rp.PhaseOps(cfg, "cuda", design="generic")
+            a, _out = launch_args("lanczos_phase_resample", lambda: rp.phase_call(gen, x))
+            note = " (the one-kernel alternative)" if shape_name.startswith("8K") else ""
+            print(f"{tag}: generic design forced{note} "
+                  f"{time_ms(lib.lanczos_phase_resample, a):.4f} ms, layout {gen.layout} "
+                  f"[{smi}]", flush=True)
+            if ops.design == "stream":
+                fv, fh = "lanczos_phase_stream_v", "lanczos_phase_stream_h"
+                av, mid = launch_args(fv, lambda: rp.stream_v_call(ops, x))
+                ah, _out = launch_args(fh, lambda: rp.stream_h_call(ops, mid))
+                tv, th = time_ms(getattr(lib, fv), av), time_ms(getattr(lib, fh), ah)
+                print(f"{tag}: production stream_v {tv:.4f} + stream_h {th:.4f} = "
+                      f"{tv + th:.4f} ms ({av[11]} rows a chunk, layout {ops.layout}) [{smi}]",
+                      flush=True)
+                for fn, args in ((fv, av), (fh, ah)):
+                    for name in PHASE_PROBES[fn]:
+                        f, info = probe(fn, name)
+                        print(f"{tag}: {fn.removeprefix('lanczos_phase_')} probe {name} "
+                              f"{time_ms(f, args):.4f} ms ({info})", flush=True)
+                base_h, _ = ops.plan.h.taps(out[1])
+                for tc in (8, 32):  # args[11] and [12]: the tile's columns and its band's
+                    eh = rp._extent(base_h, tc, 2 * ops.plan.h.support)
+                    t = time_ms(getattr(lib, fh), ah[:11] + (tc, eh) + ah[13:])
+                    print(f"{tag}: stream_h at {tc} columns a block ({eh} read, "
+                          f"{rp.stream_h_smem_bytes(ops.plan, tc, eh)} B) {t:.4f} ms", flush=True)
+                for rpc in STREAM_CHUNKS:  # args[11] is the rows of a chunk
+                    t = time_ms(getattr(lib, fv), av[:11] + (rpc,) + av[12:])
+                    print(f"{tag}: stream_v at {rpc} rows a chunk {t:.4f} ms", flush=True)
+            elif ops.design == "window":
+                fn = "lanczos_phase_window"
+                a, _out = launch_args(fn, lambda: rp.phase_call(ops, x))
+                print(f"{tag}: production window {time_ms(getattr(lib, fn), a):.4f} ms "
+                      f"(layout {ops.layout}) [{smi}]", flush=True)
+                for name in PHASE_PROBES[fn]:
+                    f, info = probe(fn, name)
+                    print(f"{tag}: window probe {name} {time_ms(f, a):.4f} ms ({info})",
+                          flush=True)
+                # the run-time form on the same blocks: args[25] is the compile-time flag
+                t = time_ms(getattr(lib, fn), a[:25] + (0,) + a[26:])
+                print(f"{tag}: window run-time form {t:.4f} ms", flush=True)
+
+
+GROUPS = ("fused", "shift", "sweep", "phase", "stream", "window")
+
+
 def main(argv=None) -> int:
-    what = set(sys.argv[1:] if argv is None else argv) or {"fused", "shift", "sweep"}
-    if what - {"fused", "shift", "sweep"}:
-        print("probe_kernels: choose from fused, shift, sweep", file=sys.stderr)
+    what = set(sys.argv[1:] if argv is None else argv) or set(GROUPS[:4])
+    if what - set(GROUPS):
+        print(f"probe_kernels: choose from {', '.join(GROUPS)}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("probe_kernels: needs a CUDA device", file=sys.stderr)
@@ -210,6 +344,9 @@ def main(argv=None) -> int:
             for probe, subs in SHIFT_PROBES.items():
                 f, info = build_probe(fn, subs, Path(tmp), f"shift_{probe}")
                 print(f"shift probe {probe}: dering {time_ms(f, a):.4f} ms ({info})", flush=True)
+        designs = {"stream", "window"} & what if "phase" not in what else ("stream", "window")
+        if designs:
+            probe_phase(lib, Path(tmp), smi, tuple(designs))
     return 0
 
 

@@ -129,6 +129,37 @@ def test_c_oracle_bit_exact(a, shape, scale):
         np.testing.assert_array_equal(got, np.asarray(TpuCExactOps(tcfg)(img)))
 
 
+@pytest.mark.parametrize("a,shape,scale", [(3, (20, 16), (2, 1)), (2, (30, 24), (4, 3))])
+def test_c_oracle_banded_passes_equal_unbanded(monkeypatch, a, shape, scale):
+    """Bands forced small (a 40-row output in three, the width pass in
+    more): the banded passes give the unbanded bytes and the host oracle's,
+    the in-place quirk rows included."""
+    (h, w), (n, d) = shape, scale
+    cfg, _ = _cfgs("c_oracle", shape, scale=scale, a=a)
+    img = np.random.default_rng(7).integers(0, 256, size=(2, h, w, 3), dtype=np.uint8)
+    ops = c_exact.CExactOps(cfg)
+    assert ops.fix_rows  # the quirk rows read whole passes, past any band
+    whole = ops(torch.from_numpy(img)).numpy()
+    oh, ow = h * n // d, w * n // d
+    assert oh == 40
+    # height pass rows hold 2 * ow * 3 values: 14 rows a band -> 14 + 14 + 12
+    monkeypatch.setattr(c_exact, "BAND_BYTES", 14 * c_exact._BAND_LIVE * 8 * 2 * ow * 3)
+    assert c_exact._band_rows(2 * ow * 3) == 14 and c_exact._band_rows(2 * h * 3) < ow
+    banded = ops(torch.from_numpy(img)).numpy()
+    np.testing.assert_array_equal(banded, whole)
+    for b in range(2):
+        np.testing.assert_array_equal(banded[b], oracle.c_oracle_upscale(img[b], oh, ow, a))
+
+
+def test_c_oracle_band_rows_keep_a_band_under_the_limit():
+    """At 4K→8K a band of either pass holds under BAND_BYTES of int64
+    temporaries, and a pass takes several bands."""
+    for trailing, out_n in ((2160 * 3, 7680), (7680 * 3, 4320)):
+        rows = c_exact._band_rows(trailing)
+        assert 1 <= rows < out_n
+        assert rows * trailing * 8 * c_exact._BAND_LIVE <= c_exact.BAND_BYTES
+
+
 def test_c_oracle_batched_and_leading_dims():
     rng = np.random.default_rng(2)
     cfg, _ = _cfgs("c_oracle", (32, 24), scale=(2, 1), a=3)

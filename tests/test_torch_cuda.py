@@ -9,8 +9,9 @@ JAX package's ``tests/conftest.py`` needs JAX, hence ``--noconftest``):
 Limits: the fused kernel (every instantiation) fp32 ≤ 1 LSB on ≤ 1% of
 pixels, bf16 ≤ 3 LSB on ≤ 50% (the same plan, taps, order and rounding
 points: the kernel's sums are fused multiply-adds, the plain version's a
-multiply and then an add); kernel 2 and the v1 kernel identical bytes
-(the same multiply-then-add sequence in the same order); each ablation
+multiply and then an add); kernel 2 and the v1 kernels (every design,
+and the generic design forced) identical bytes (the same
+multiply-then-add sequence in the same order); each ablation
 kernel identical bytes to its dense plain version, and within the fused
 kernel's limits of the production kernel where it keeps its semantics
 (a dense product sums in another order than the band-sparse kernel).  The tensor-op paths: the
@@ -231,45 +232,94 @@ def test_upscale_dering_runs_on_the_kernel(cuda):
         _within(y.cpu(), want, kw.get("precision", "fp32"))
 
 
-@pytest.mark.parametrize("precision", ["fp32", "bf16"])
-@pytest.mark.parametrize("shape,out,kw", [
+V1_CASES = [  # (in, out, overrides): every design and instantiation of the v1 source
     ((24, 40), (36, 60), {}),  # 3/2
     ((36, 60), (24, 40), {"align": "center"}),  # 2/3
     ((256, 256), (16, 16), {}),  # 1/16, support 48
-    ((384, 384), (24, 24), {}),  # 1/16 with no fused plan: the tile shrinks, ragged rows
+    ((384, 384), (24, 24), {}),  # 1/16 with no fused plan: ragged chunks of rows
     ((24, 40), (48, 60), {"edge_mode": "reflect"}),  # 2/1 by 3/2
     ((25, 41), (37, 61), {}),  # ragged, 37 and 61 phases
     ((32, 48), (2, 3), {"edge_mode": "reflect"}),  # support 48 > the image
     ((24, 40), (36, 40), {"edge_mode": "drop", "normalize": False}),  # 3/2 by 1/1
-])
-def test_phase_kernel_equals_plain_version(cuda, shape, out, kw, precision):
+    # the window design: each compile-time pair, 16-byte and byte paths, ragged blocks
+    ((96, 160), (144, 240), {}),  # 3/2, W % 16 == 0, 3 x 3 blocks
+    ((81, 144), (108, 192), {}),  # 4/3
+    ((70, 96), (70, 128), {}),  # the desqueeze: 1/1 by 4/3
+    ((81, 100), (108, 100), {}),  # 4/3 by 1/1, W % 16 != 0
+    ((50, 64), (50, 96), {"edge_mode": "reflect"}),  # 1/1 by 3/2
+    ((40, 70), (60, 140), {}),  # 3/2 by 2/1
+    ((90, 120), (135, 180), {"align": "center"}),  # center: the run-time form
+    ((48, 80), (60, 100), {}),  # 5/4
+    ((48, 80), (72, 120), {"a": 2}),  # 3/2 at support 2
+    ((34, 46), (51, 69), {"a": 4, "edge_mode": "drop", "normalize": False}),  # 8 taps
+    ((60, 90), (90, 120), {}),  # 3/2 by 4/3: no compile-time pair
+    # the streamed design: live rows 4, 6, 8; edges; the byte path; ragged stripes
+    ((512, 208), (128, 52), {}),  # 1/4: the second stripe is 80 columns
+    ((128, 50), (32, 25), {}),  # W % 16 != 0
+    ((128, 64), (16, 16), {"edge_mode": "drop", "normalize": False}),  # zero edges
+    ((128, 64), (32, 16), {"align": "center"}),
+    ((128, 48), (16, 72), {"a": 2}),  # 4 live rows; 1/8 by 3/2
+    ((160, 32), (32, 32), {"a": 4}),  # 8 live rows; 1/5 by 1/1
+    ((640, 700), (40, 700), {"edge_mode": "reflect"}),  # 1/16 by 1/1, six stripes
+]
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("design", ["auto", "generic"])
+@pytest.mark.parametrize("shape,out,kw", V1_CASES)
+def test_phase_kernel_equals_plain_version(cuda, shape, out, kw, design, precision):
+    kw = dict(kw)
     cfg = lanczos_torch.ResampleConfig.from_profile(
-        "precise", shape, out_shape=out, a=3, precision=precision, **kw
+        "precise", shape, out_shape=out, a=kw.pop("a", 3), precision=precision, **kw
     )
-    ops = rc.FusedOps(cfg, cuda, variant="v1")
+    ops = rc.FusedOps(cfg, cuda, variant="v1", design=design)
     assert ops.variant == "v1" and ops.kernel.startswith("phase_resample_")
+    assert design == "auto" or ops.phase.design == "generic"
     x = np.random.default_rng(6).integers(0, 256, (6,) + shape, dtype=np.uint8)
     x = torch.from_numpy(x).to(cuda)
-    before = rp.launches[ops.kernel]
+    before = dict(rp.launches)
     got = rc.upscale_planar(x, ops)
     torch.cuda.synchronize()
-    assert rp.launches[ops.kernel] == before + 1
+    assert {k: n - before[k] for k, n in rp.launches.items() if n != before[k]} == {
+        k: 1 for k in ops.phase.kernels}
     want = rp.phase_resample_reference(x, ops.phase.plan, precision, out)
     assert torch.equal(got, want)
     assert torch.equal(got.cpu(), rp.phase_resample_reference(x.cpu(), ops.phase.plan,
                                                               precision, out))
 
 
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("rpc", [None, 1, 5, 1000])
+def test_stream_kernels_equal_their_plain_versions(cuda, rpc, precision):
+    """The streamed design's two kernels, each against its own plain
+    version, at any chunking of the rows."""
+    cfg = lanczos_torch.ResampleConfig.from_profile(
+        "precise", (384, 400), out_shape=(24, 25), a=3, precision=precision)
+    ops = rp.PhaseOps(cfg, cuda)
+    assert ops.design == "stream"
+    x = torch.from_numpy(
+        np.random.default_rng(12).integers(0, 256, (3, 384, 400), dtype=np.uint8)).to(cuda)
+    mid = rp.stream_v_call(ops, x, rpc=rpc)
+    want_mid = rp.stream_v_reference(x, ops.plan, precision, 24)
+    assert mid.dtype == want_mid.dtype and torch.equal(mid, want_mid)
+    out = rp.stream_h_call(ops, mid)
+    torch.cuda.synchronize()
+    assert torch.equal(out, rp.stream_h_reference(want_mid, ops.plan, precision, 25))
+    assert torch.equal(out, rp.phase_resample_reference(x, ops.plan, precision, (24, 25)))
+
+
 def test_upscale_pallas_backend_runs_v1(cuda):
     """A 1/16 thumbnail of a 640×800 frame: no fused plan fits (a 16-row
-    tile's band outgrows shared memory), so ``backend="pallas"`` runs v1."""
+    tile's band outgrows shared memory), so ``backend="pallas"`` runs v1:
+    its streamed design's two kernels."""
     img = torch.from_numpy(
         np.random.default_rng(7).integers(0, 256, (640, 800, 3), dtype=np.uint8)
     ).to(cuda)
-    before = rp.launches["phase_resample_fp32"]
+    before = dict(rp.launches)
     y = lanczos_torch.upscale(img, out_shape=(40, 50), backend="pallas")
     assert y.is_cuda and y.shape == (40, 50, 3)
-    assert rp.launches["phase_resample_fp32"] == before + 1
+    assert {k: n - before[k] for k, n in rp.launches.items() if n != before[k]} == {
+        "phase_stream_v_fp32": 1, "phase_stream_h_fp32": 1}
     want = lanczos_torch.upscale(img.cpu(), out_shape=(40, 50), backend="pallas")
     assert torch.equal(y.cpu(), want)
 
