@@ -66,12 +66,39 @@ not 0:
    1126×2001 through ``auto`` (the block path), also with TF32 enabled,
    which must not change a byte;
 13. times of every new path at full width through ``Upscaler``, beside the
-   fused kernel on the same 4K→8K frame.
+   fused kernel on the same 4K→8K frame;
+14. chunk plans at small shapes: the fused kernel on the hand-built chunk
+   plans of ``StreamingUpscaler`` (seven config families, ragged tail
+   chunks, a chunk of one tile, widths that break 16-byte traffic; fp32
+   and bf16) against its plain version on the same plan; each streamed
+   frame against the whole-frame kernel, with ``n_chunks`` launches; the
+   gather and shift chunk paths byte-equal to the whole-frame gather on
+   the card; pipelined (``depth=3``, prefetch thread) and resumed runs
+   byte-equal to serial and full ones under a source that sleeps at
+   random, and arrays yielded earlier unchanged by later chunks;
+15. streaming at full width: the 4K frame through
+   ``StreamingUpscaler(cfg, chunk_rows=1024, chunk_backend="mxu")`` in
+   fp32, bf16 and with dering, against the float64 gathers and the
+   whole-frame kernel; then a 17280×3840×3 frame streamed from host memory
+   to 34560×7680×3, each chunk against the whole-frame kernel's rows, and
+   the peak device memory of both;
+16. video at full width: 16 4K frames through ``VideoUpscaler(cfg, batch=4,
+   depth=3)`` by ``frames()`` (from a producer that reuses one buffer) and
+   by ``__call__``, byte-equal to ``Upscaler`` a frame; a 4:2:0 ``.y4m``
+   of 8 frames through ``upscale_y4m``, every plane byte-equal to
+   ``Upscaler.planar``;
+17. times: the pinned copy rates of this run, a streamed 4K→8K frame
+   serial and pipelined, pageable and pinned, and where its time goes; the
+   tall frame; video frames/s at batch 1, 4 and 8; ``upscale_y4m`` beside
+   its reader, its writer and its kernels alone.
 
 Limits: fp32 ≤ 1 LSB on ≤ 1% of pixels (the quantized intermediate ≤ 2
 LSB: one flipped intermediate value spreads over the taps); bf16 ≤ 3 LSB
 on ≤ 50% of pixels; kernel 2, the v1 kernel and the ablation kernels and
-their plain versions identical bytes; the bit-exact profiles identical
+their plain versions identical bytes; a streamed frame ≤ 1 LSB from the
+whole-frame kernel in fp32 (the reference's contract for the fused chunk
+path: edge rows come from a padded window, not from folded weights), in
+bf16 within the bf16 limits of it; the bit-exact profiles identical
 bytes; float output |Δ| ≤ 1e-3 (values 0–255).  The last lines are one
 JSON object of the kernels and one of the device.  A v1 kernel's
 ``earlier_ms`` is the forced generic design's time on the same frame in
@@ -91,13 +118,15 @@ import json
 import multiprocessing
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
 
 LIMITS = {"fp32": (1, 0.01), "bf16": (3, 0.50), "quant": (2, 0.01), "exact": (0, 0.0),
-          "float": (1e-3, 1.0)}
+          "float": (1e-3, 1.0), "1 LSB": (1, 1.0)}
+TALL = (17280, 3840)  # eight 4K frames' rows: the frame that makes streaming real
 FRAME = (2160, 3840)  # the main path's input, 4K; output 2x each way
 # a rational scale (563/540 by 667/640) only the block path takes
 BLOCK_CASE = ((1080, 1920), (1126, 2001))
@@ -432,6 +461,452 @@ def bit_exact_and_float_paths(img: np.ndarray, x, smi: str) -> None:
     del timed
 
 
+def wall_ms(fn, iters: int = 5, warmup: int = 2) -> float:
+    """Mean host milliseconds per call of ``fn``, which must end with the
+    device idle (the streaming and video entry points wait for their last
+    readback); the card is synchronized before and after."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def sleepy(img: np.ndarray, seed: int):
+    """A ``get_rows`` over ``img`` that sleeps up to 4 ms at random, so the
+    prefetch thread and the copy streams run out of step."""
+    naps = np.random.default_rng(seed).random(97) * 0.004
+
+    def get_rows(lo, hi):
+        time.sleep(naps[lo % 97])
+        return img[lo:hi]
+
+    return get_rows
+
+
+def chunks_equal(name: str, got: list, want: list) -> None:
+    ok = [y for y, _ in got] == [y for y, _ in want] and all(
+        a.dtype == b.dtype and np.array_equal(a, b) for (_, a), (_, b) in zip(got, want))
+    print(f"  {name}: {len(got)} chunks {'identical' if ok else 'DIFFER'}", flush=True)
+    if not ok:
+        raise AssertionError(f"{name}: chunks differ")
+
+
+def streaming_and_video(img: np.ndarray, x, smi: str, refs64: dict, kernels: list) -> None:
+    """Phases 14–17: streaming and video, on ``img`` (``x`` on the card);
+    the fused kernels' records in ``kernels`` gain the launches of a
+    streamed frame and of the video runs."""
+    import torch
+
+    import lanczos_torch
+    from lanczos_torch.io import y4m
+    from lanczos_torch.ops import resample_cuda as rc
+
+    dev = x.device
+    Streaming, Upscaler = lanczos_torch.StreamingUpscaler, lanczos_torch.Upscaler
+
+    def profile(shape, **kw):
+        return lanczos_torch.ResampleConfig.from_profile("precise", shape, a=3, **kw)
+
+    def noise(rng, *shape):
+        return rng.integers(0, 256, shape, dtype=np.uint8)
+
+    # ---- 14. chunk plans at small shapes
+    print("== 14. chunk plans: the fused kernel on StreamingUpscaler's hand-built plans, "
+          "small shapes", flush=True)
+    rng = np.random.default_rng(14)
+    plans = [  # name, in, out, overrides, chunk_rows
+        ("2x", (96, 64), (192, 128), {}, 32),
+        ("3/2", (96, 64), (144, 96), {}, 24),
+        ("1/2", (96, 64), (48, 32), {}, 16),
+        ("reflect", (96, 64), (192, 128), {"edge_mode": "reflect"}, 32),
+        ("dering", (96, 64), (192, 128), {"dering": True}, 32),
+        ("quantize", (96, 64), (192, 128), {"intermediate_quantize": True}, 32),
+        ("center", (96, 64), (192, 128), {"align": "center"}, 32),
+        ("2/1 ragged tail of 8 rows, a chunk of one tile 100x300", (100, 300), (200, 600), {},
+         64),
+        ("2/1 odd W, OW=154, tail of 36 rows 90x77", (90, 77), (180, 154), {}, 48),
+        ("3/2 OW=180 dering+quantize 80x120", (80, 120), (120, 180),
+         {"dering": True, "intermediate_quantize": True}, 24),
+        ("3/1 reflect, chunks of 64+32 rows 64x96", (64, 96), (192, 288),
+         {"edge_mode": "reflect"}, 96),
+        ("2/3 center-aligned downscale 120x96", (120, 96), (80, 64),
+         {"align": "center"}, 16),
+    ]
+    for precision in ("fp32", "bf16"):
+        for name, ins, outs, kw, chunk in plans:
+            cfg = profile(ins, out_shape=outs, precision=precision, **kw)
+            sm = Streaming(cfg, chunk_rows=chunk, chunk_backend="mxu")
+            if sm.chunk_path != "fused" or sm.device.type != "cuda":
+                raise AssertionError(f"{name}: chunk path {sm.chunk_path} on {sm.device}")
+            ops = sm._mxu
+            xw = torch.from_numpy(noise(rng, 3, sm.win, ins[1])).to(dev)
+            got = rc.fused_call(ops, xw)
+            want = rc.fused_resample_reference(xw, ops.plan, precision, ops.cfg.out_shape,
+                                               cfg.dering, cfg.intermediate_quantize)
+            torch.cuda.synchronize()
+            compare(f"{ops.kernel} chunk plan {name} (window {sm.win}, tile "
+                    f"{ops.plan.tile_out}x{ops.plan.cb}) vs plain version", got, want,
+                    limits(cfg, "mxu"))
+            frame = noise(rng, *ins, 3)
+            torch.cuda.synchronize()
+            reset_counts()
+            out = sm(frame)
+            n = read_counts()
+            if n != {ops.kernel: sm.n_chunks}:
+                raise AssertionError(f"{name}: launches {n}, expected {sm.n_chunks} of "
+                                     f"{ops.kernel}")
+            whole = Upscaler(cfg)(torch.from_numpy(frame).to(dev))
+            compare(f"{precision} streamed {name} ({sm.n_chunks} chunks) vs whole-frame kernel",
+                    out, whole, "1 LSB" if precision == "fp32" else "bf16")
+    for scale in ((2, 1), (3, 2), (7, 2)):
+        n_, d_ = scale
+        ins = (48 * d_, 40 * d_)
+        cfg = profile(ins, scale=scale)
+        frame = noise(rng, *ins, 3)
+        whole = Upscaler(cfg, backend="xla")(torch.from_numpy(frame).to(dev))
+        for backend in ("gather", "shift"):
+            sm = Streaming(cfg, chunk_rows=40, chunk_backend=backend)
+            if sm.chunk_path != backend:
+                raise AssertionError(f"{backend} at {scale}: took {sm.chunk_path}")
+            compare(f"{backend} chunk path {n_}/{d_} {ins[0]}x{ins[1]} ({sm.n_chunks} chunks) "
+                    "vs whole-frame gather on the card", sm(frame), whole, "exact")
+    cfg = profile((600, 256), scale=(2, 1))
+    frame = noise(rng, 600, 256, 3)
+    for backend in ("mxu", "shift", "gather"):
+        sm = Streaming(cfg, chunk_rows=64, chunk_backend=backend)
+        serial = list(sm.chunks(lambda lo, hi: frame[lo:hi], depth=1, prefetch=False))
+        held = [(y0, rows, rows.copy())
+                for y0, rows in sm.chunks(sleepy(frame, 1), depth=3, prefetch=True)]
+        chunks_equal(f"{sm.chunk_path} pipelined (depth 3, prefetch, sleeping source) vs serial",
+                     [(y0, then) for y0, _, then in held], serial)
+        chunks_equal(f"{sm.chunk_path} chunks yielded earlier, read again after the run",
+                     [(y0, rows) for y0, rows, _ in held], serial)
+        resumed = list(sm.chunks(sleepy(frame, 2), start_chunk=7, depth=2))
+        chunks_equal(f"{sm.chunk_path} resumed at chunk 7 vs the tail of the full run",
+                     resumed, serial[7:])
+
+        def dies(lo, hi):
+            if lo > 300:
+                raise OSError("the source died")
+            return frame[lo:hi]
+
+        try:
+            list(sm.chunks(dies, depth=3))
+        except OSError as e:
+            print(f"  {sm.chunk_path}: a raising get_rows re-raised at the consumer: {e}",
+                  flush=True)
+        else:
+            raise AssertionError("a raising get_rows was swallowed")
+        gen = sm.chunks(sleepy(frame, 3), depth=3)
+        next(gen)
+        gen.close()  # abandoned with chunks in flight
+        chunks_equal(f"{sm.chunk_path} a run after a failed and an abandoned one",
+                     list(sm.chunks(lambda lo, hi: frame[lo:hi])), serial)
+
+    # ---- 15. streaming at full width
+    print("== 15. streaming at full width: 2160x3840x3 -> 4320x7680x3 in chunks of 1024 "
+          "rows", flush=True)
+    streamed = {}  # kernel name -> launches of one streamed frame
+    for name, kw, ref, lim in (("fp32", {}, "linear", "fp32"),
+                               ("bf16", {"precision": "bf16"}, "linear", "bf16"),
+                               ("fp32 dering", {"dering": True}, "dering", "fp32")):
+        cfg = profile(FRAME, scale=(2, 1), **kw)
+        sm = Streaming(cfg, chunk_rows=1024, chunk_backend="mxu")
+        if sm.chunk_path != "fused":
+            raise AssertionError(f"{name}: chunk path {sm.chunk_path}")
+        torch.cuda.synchronize()
+        reset_counts()
+        out = sm(img)
+        n = read_counts()
+        print(f"  {name}: window {sm.win} rows, {sm.n_chunks} chunks, plan tile "
+              f"{sm._mxu.plan.tile_out}x{sm._mxu.plan.cb}; launches {n}", flush=True)
+        if n != {sm._mxu.kernel: sm.n_chunks}:
+            raise AssertionError(f"{name}: expected {sm.n_chunks} launches of "
+                                 f"{sm._mxu.kernel}, got {n}")
+        streamed[sm._mxu.kernel] = sm.n_chunks
+        if out.shape != (2 * FRAME[0], 2 * FRAME[1], 3) or out.dtype != np.uint8:
+            raise AssertionError(f"{name}: got {out.shape} {out.dtype}")
+        compare(f"{name} streamed vs float64 gather", out, refs64[ref], lim)
+        whole = lanczos_torch.upscale(x, scale=(2, 1), profile="precise", a=3, **kw)
+        # bf16: the sum-keeping rounding puts each output's residual on its largest
+        # tap, and at the half-pixel phase two taps tie: the chunk plan's operator and
+        # the frame's differ in the last bits of a float64 and may pick either
+        compare(f"{name} streamed vs whole-frame kernel", out, whole,
+                "bf16" if lim == "bf16" else "1 LSB")
+        del out, whole
+    refs64.clear()
+    torch.cuda.empty_cache()
+
+    tall = np.random.default_rng(15).integers(0, 256, TALL + (3,), dtype=np.uint8)
+    cfg_t = profile(TALL, scale=(2, 1))
+    sm_t = Streaming(cfg_t, chunk_rows=1024, chunk_backend="mxu")
+    depth = 3
+    parts = list(sm_t.chunks(lambda lo, hi: tall[lo:hi], depth=depth))  # tables, staging caches
+    del parts
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    parts = list(sm_t.chunks(lambda lo, hi: tall[lo:hi], depth=depth))
+    torch.cuda.synchronize()
+    peak_streamed = torch.cuda.max_memory_allocated() - base
+    n = read_counts()
+    if n != {"fused_resample_fp32": sm_t.n_chunks}:
+        raise AssertionError(f"tall frame: launches {n}, expected {sm_t.n_chunks}")
+    torch.cuda.reset_peak_memory_stats()
+    whole_t = Upscaler(cfg_t)(torch.from_numpy(tall).to(dev))
+    torch.cuda.synchronize()
+    peak_whole = torch.cuda.max_memory_allocated() - base
+    whole_np = whole_t.cpu().numpy()
+    del whole_t
+    torch.cuda.empty_cache()
+    worst, differing = 0, 0
+    for y0, rows in parts:
+        d = np.abs(rows.astype(np.int16) - whole_np[y0 : y0 + rows.shape[0]])
+        worst, differing = max(worst, int(d.max())), differing + int((d > 0).sum())
+    print(f"  tall frame {TALL[0]}x{TALL[1]}x3 ({tall.nbytes / 1e6:.0f} MB) -> "
+          f"{whole_np.shape[0]}x{whole_np.shape[1]}x3 in {len(parts)} chunks: max|d|={worst} "
+          f"differing={differing / whole_np.size:.6f} vs the whole-frame kernel's rows "
+          f"({'ok' if worst <= 1 else 'FAIL'})", flush=True)
+    if worst > 1 or sum(r.shape[0] for _, r in parts) != whole_np.shape[0]:
+        raise AssertionError("tall frame: a streamed chunk is past 1 LSB of the whole frame")
+    c = 3
+    a_chunk = c * (sm_t.win * TALL[1] + sm_t.chunk * 2 * TALL[1])  # a window and a chunk of rows
+    predicted = (depth + 1) * a_chunk  # depth chunks in flight and one chunk's temporaries
+    print(f"  peak device memory: streamed {peak_streamed / 1e6:.1f} MB (predicted "
+          f"{predicted / 1e6:.1f} MB from depth {depth}, window {sm_t.win}, chunk "
+          f"{sm_t.chunk}), whole-frame call {peak_whole / 1e6:.1f} MB [{smi}]", flush=True)
+    if not (peak_streamed < peak_whole / 3 and predicted / 2 <= peak_streamed <= 2 * predicted):
+        raise AssertionError("the streamed run's device memory is not bounded as predicted")
+    del parts, whole_np
+
+    # ---- 16. video at full width
+    print("== 16. video at full width: 16 frames 2160x3840x3 -> 4320x7680x3", flush=True)
+    cfg = profile(FRAME, scale=(2, 1))
+    frames16 = np.random.default_rng(16).integers(0, 256, (16,) + FRAME + (3,), dtype=np.uint8)
+    single = Upscaler(cfg)
+    vu = lanczos_torch.VideoUpscaler(cfg, batch=4, depth=3)
+    buf = np.empty_like(frames16[0])
+
+    def producer():
+        for f in frames16:
+            buf[...] = f  # one buffer, rewritten between pulls
+            yield buf
+
+    torch.cuda.synchronize()
+    reset_counts()
+    outs = list(vu.frames(producer()))
+    n = read_counts()
+    print(f"  frames(): {len(outs)} frames, launches {n}", flush=True)
+    if n != {"fused_resample_fp32": 4} or len(outs) != 16:
+        raise AssertionError(f"video: launches {n}, {len(outs)} frames")
+    reset_counts()
+    called = vu(frames16)
+    video_launches = read_counts()
+    if video_launches != {"fused_resample_fp32": 4}:
+        raise AssertionError(f"video __call__: launches {video_launches}")
+    bad = []
+    for k in range(16):
+        want = single(torch.from_numpy(frames16[k]).to(dev)).cpu().numpy()
+        if not (np.array_equal(outs[k], want) and np.array_equal(called[k], want)):
+            bad.append(k)
+    print(f"  frames() and __call__ vs Upscaler(cfg) a frame: "
+          f"{'identical' if not bad else f'frames {bad} DIFFER'}", flush=True)
+    if bad:
+        raise AssertionError(f"video frames {bad} differ from Upscaler")
+    del outs, called
+
+    with tempfile.TemporaryDirectory() as tmp:
+        rng = np.random.default_rng(17)
+        ch, cw = FRAME[0] // 2, FRAME[1] // 2
+        clip = [(noise(rng, *FRAME), noise(rng, ch, cw), noise(rng, ch, cw)) for _ in range(8)]
+        src, dst = f"{tmp}/in.y4m", f"{tmp}/out.y4m"
+        in_hdr = y4m.Y4MHeader(FRAME[1], FRAME[0], fps=(24, 1), colorspace="420jpeg")
+        with y4m.Y4MWriter(src, in_hdr) as writer:
+            for f in clip:
+                writer.write(f)
+        torch.cuda.synchronize()
+        reset_counts()
+        hdr = lanczos_torch.upscale_y4m(src, dst, scale=(2, 1))
+        y4m_launches = read_counts()
+        want_hdr = y4m.Y4MHeader(
+            2 * FRAME[1], 2 * FRAME[0], fps=in_hdr.fps, interlace=in_hdr.interlace,
+            aspect=in_hdr.aspect, colorspace=in_hdr.colorspace, extensions=in_hdr.extensions)
+        hdr2, got = y4m.read_y4m(dst)
+        print(f"  upscale_y4m: {len(got)} frames, header {hdr.tag_line()!r}, launches "
+              f"{y4m_launches}", flush=True)
+        if not (hdr == want_hdr == hdr2) or len(got) != 8:
+            raise AssertionError(f"upscale_y4m: header {hdr} or {len(got)} frames")
+        if y4m_launches != {"fused_resample_fp32": 2}:  # one luma, one Cb+Cr dispatch a batch
+            raise AssertionError(f"upscale_y4m: launches {y4m_launches}")
+        ups = {p.shape: Upscaler(profile(p.shape, scale=(2, 1))) for p in clip[0]}
+        bad = [
+            (k, i) for k, (f_in, f_out) in enumerate(zip(clip, got))
+            for i, (p_in, p_out) in enumerate(zip(f_in, f_out))
+            if not np.array_equal(
+                p_out, ups[p_in.shape].planar(torch.from_numpy(p_in[None]).to(dev))[0]
+                .cpu().numpy())
+        ]
+        print(f"  every plane vs Upscaler.planar: "
+              f"{'identical' if not bad else f'(frame, plane) {bad} DIFFER'}", flush=True)
+        if bad:
+            raise AssertionError(f"upscale_y4m planes {bad} differ from Upscaler.planar")
+        for k in kernels:
+            if k["name"] in streamed:
+                k["streamed_launches"] = streamed[k["name"]]
+            if k["name"] == "fused_resample_fp32":
+                k["video_launches"] = video_launches[k["name"]]
+                k["y4m_launches"] = y4m_launches[k["name"]]
+
+        # ---- 17. times
+        print(f"== 17. times of streaming and video [{smi}]", flush=True)
+        times_of_streaming_and_video(img, x, tall, sm_t, frames16, clip, got, src, tmp)
+
+
+def times_of_streaming_and_video(img, x, tall, sm_t, frames16, clip, clip_out, src, tmp) -> None:
+    """Phase 17.  ``event`` times are CUDA events on the stream named;
+    ``wall`` times are the host's clock around calls that end with the
+    device idle."""
+    import torch
+
+    import lanczos_torch
+    from lanczos_torch.io import y4m
+    from lanczos_torch.models._pipeline import host_copy, host_empty
+    from lanczos_torch.models.streaming import _window
+    from lanczos_torch.ops import resample_cuda as rc
+    from lanczos_torch.utils.timing import cuda_time_ms
+
+    dev = x.device
+    cfg = lanczos_torch.ResampleConfig.from_profile("precise", FRAME, scale=(2, 1), a=3)
+    sm = lanczos_torch.StreamingUpscaler(cfg, chunk_rows=1024, chunk_backend="mxu")
+    c = 3
+    window_bytes = sm.win * FRAME[1] * c
+    chunk_bytes = sm.chunk * 2 * FRAME[1] * c
+    up_bytes, down_bytes = sm.n_chunks * window_bytes, 4 * img.nbytes
+
+    # the link, on pinned buffers of the sizes a streamed frame moves
+    rates = {}
+    for name, nbytes in (("window", window_bytes), ("chunk", chunk_bytes),
+                         ("frame in", img.nbytes), ("frame out", 4 * img.nbytes)):
+        host = host_empty((nbytes,), torch.uint8, True)
+        card = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+        up = cuda_time_ms(lambda: card.copy_(host, non_blocking=True))
+        down = cuda_time_ms(lambda: host.copy_(card, non_blocking=True))
+        rates[name] = (nbytes / up / 1e6, nbytes / down / 1e6)
+        print(f"  pinned copy of a {name} ({nbytes / 1e6:.1f} MB, event, mean of 20): up "
+              f"{up:.4f} ms = {rates[name][0]:.1f} GB/s, down {down:.4f} ms = "
+              f"{rates[name][1]:.1f} GB/s", flush=True)
+        del host, card
+    t_up = up_bytes / rates["window"][0] / 1e6
+    t_down = down_bytes / rates["chunk"][1] / 1e6
+    print(f"  a streamed 4K->8K frame moves {up_bytes / 1e6:.1f} MB up ({sm.n_chunks} windows "
+          f"of {sm.win} rows) and {down_bytes / 1e6:.1f} MB down: {t_up:.3f} ms and "
+          f"{t_down:.3f} ms at those rates; the slower direction {max(t_up, t_down):.3f} ms",
+          flush=True)
+
+    # the device's share: the chunk function on resident windows
+    window = x[: sm.win].contiguous()
+    dev_ms = sm.n_chunks * cuda_time_ms(lambda: sm._chunk_fn(window).contiguous())
+    ops = rc.FusedOps(cfg, "cuda")
+    planar = x.permute(2, 0, 1).contiguous()
+    whole_ms = cuda_time_ms(lambda: rc.fused_call(ops, planar))
+    print(f"  device work of a streamed frame ({sm.n_chunks} x permute, kernel, permute; "
+          f"event): {dev_ms:.4f} ms; the whole-frame kernel {whole_ms:.4f} ms", flush=True)
+    # the host's share: fetching every window into its staging buffer
+    stage = host_empty((sm.win,) + img.shape[1:], torch.uint8, True).numpy()
+    for name, source, target in (("window", img[: sm.win], stage),
+                           ("frame", img, host_empty(img.shape, torch.uint8, True).numpy())):
+        plain = wall_ms(lambda: target.__setitem__(Ellipsis, source), iters=10)
+        threaded = wall_ms(lambda: host_copy(target, source), iters=10)
+        print(f"  host copy of a {name} into pinned memory ({source.nbytes / 1e6:.1f} MB; wall): "
+              f"numpy assignment {plain:.3f} ms = {source.nbytes / plain / 1e6:.1f} GB/s, "
+              f"host_copy on {torch.get_num_threads()} threads {threaded:.3f} ms = "
+              f"{source.nbytes / threaded / 1e6:.1f} GB/s", flush=True)
+
+    def fetch_all():
+        for k in range(sm.n_chunks):
+            _, _, (rows, top, bot, mode), _ = sm._host_chunk_args(k, lambda lo, hi: img[lo:hi])
+            _window(stage, rows, top, bot, mode)
+
+    fetch_ms = wall_ms(fetch_all, iters=10)
+    print(f"  host work of a streamed frame (every window fetched, padded and copied into a "
+          f"pinned buffer; wall): {fetch_ms:.3f} ms = {up_bytes / fetch_ms / 1e6:.1f} GB/s",
+          flush=True)
+
+    def run(model, source, depth, prefetch):
+        for _ in model.chunks(source, depth=depth, prefetch=prefetch):
+            pass
+
+    results = {}
+    for pinned in (False, True, True, False):
+        sm.pinned = pinned
+        for mode, depth, prefetch in (("serial", 1, False), ("pipelined", 3, True)):
+            ms = wall_ms(lambda: run(sm, lambda lo, hi: img[lo:hi], depth, prefetch), iters=8)
+            results.setdefault(("pinned" if pinned else "pageable", mode), []).append(ms)
+    sm.pinned = True
+    for (memory, mode), (a, b) in results.items():
+        print(f"  streamed 4K->8K frame, {memory}, {mode} (chunks(); wall, mean of 8, two "
+              f"turns): {a:.3f} / {b:.3f} ms = {(a + b) / 2 / max(t_up, t_down):.2f}x the "
+              f"slower copy direction; device work {dev_ms / ((a + b) / 2):.3f} of it",
+              flush=True)
+    call_ms = wall_ms(lambda: sm(img), iters=8)
+    print(f"  StreamingUpscaler.__call__ (pinned, depth 3, prefetch, read back into one "
+          f"pinned frame; wall): {call_ms:.3f} ms", flush=True)
+
+    tall_ms = wall_ms(lambda: run(sm_t, lambda lo, hi: tall[lo:hi], 3, True), iters=3, warmup=1)
+    mpix = 4 * TALL[0] * TALL[1] / 1e6
+    print(f"  tall frame {TALL[0]}x{TALL[1]} -> {2 * TALL[0]}x{2 * TALL[1]}, {sm_t.n_chunks} "
+          f"chunks (chunks(), depth 3, prefetch; wall): {tall_ms:.2f} ms = "
+          f"{mpix / tall_ms * 1e3:.0f} Mpix/s of output, "
+          f"{tall_ms / (4 * tall.nbytes / rates['chunk'][1] / 1e6):.2f}x its down-copy time",
+          flush=True)
+
+    for batch in (1, 4, 8):
+        vu = lanczos_torch.VideoUpscaler(cfg, batch=batch, depth=3)
+
+        def play():
+            for _ in vu.frames(iter(frames16)):
+                pass
+
+        ms = wall_ms(play, iters=3, warmup=1)
+        print(f"  VideoUpscaler.frames(), batch {batch}, depth 3, 16 frames 4K->8K (wall): "
+              f"{ms / 16:.3f} ms/frame = {16e3 / ms:.1f} frames/s; the down-copy alone "
+              f"{4 * img.nbytes / rates['frame out'][1] / 1e6:.3f} ms/frame", flush=True)
+
+    n = len(clip)
+    total = wall_ms(lambda: lanczos_torch.upscale_y4m(src, f"{tmp}/timed.y4m", scale=(2, 1)),
+                    iters=2, warmup=1)
+
+    def read_all():
+        with y4m.Y4MReader(src) as reader:
+            for _ in reader:
+                pass
+
+    read_ms = wall_ms(read_all, iters=2, warmup=1)
+    write_ms = wall_ms(lambda: y4m.write_y4m(f"{tmp}/written.y4m", clip_out, fps=(24, 1)),
+                       iters=2, warmup=1)
+    luma = torch.from_numpy(np.stack([f[0] for f in clip])[:, None]).to(dev)
+    chroma = torch.from_numpy(np.stack([np.stack(f[1:]) for f in clip])).to(dev)
+    ups = [lanczos_torch.Upscaler(lanczos_torch.ResampleConfig.from_profile(
+        "precise", tuple(t.shape[-2:]), scale=(2, 1), a=3)) for t in (luma, chroma)]
+    kernels_ms = cuda_time_ms(lambda: [u.planar(t) for u, t in zip(ups, (luma, chroma))])
+    moved = sum(p.nbytes for p in clip[0]) / rates["frame in"][0] / 1e6 + sum(
+        p.nbytes for p in clip_out[0]) / rates["frame out"][1] / 1e6
+    print(f"  upscale_y4m, {n} frames 4:2:0 2160x3840 -> 4320x7680, batch 8, depth 3 (wall): "
+          f"{total / n:.2f} ms/frame = {n * 1e3 / total:.1f} frames/s; alone: reader "
+          f"{read_ms / n:.2f} ms/frame ({read_ms / total:.2f} of it), writer "
+          f"{write_ms / n:.2f} ({write_ms / total:.2f}), kernels {kernels_ms / n:.3f} "
+          f"({kernels_ms / total:.4f}; event), copies at the pinned rates {moved:.3f} "
+          f"({moved * n / total:.3f})", flush=True)
+
+
 def main() -> None:
     import torch
 
@@ -678,6 +1153,7 @@ def main() -> None:
         errs[p], _ = compare(f"{p} upscale vs plain version",
                              y, plain.permute(1, 2, 0), p)
         del plain
+    refs64 = {"linear": ref64}  # phase 15 holds the streamed frames to them too
     del outs, ref64
     torch.cuda.empty_cache()
 
@@ -775,6 +1251,7 @@ def main() -> None:
     print(f"  float64 numpy gather references (3, in parallel): "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     pool.shutdown()
+    refs64["dering"] = f64["dering"][1].result()
     del f64
     torch.cuda.empty_cache()
 
@@ -1003,6 +1480,7 @@ def main() -> None:
     del himg
 
     bit_exact_and_float_paths(img, x, smi)
+    streaming_and_video(img, x, smi, refs64, kernels)
 
     print(f"  chip_smoke took {time.perf_counter() - T0:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

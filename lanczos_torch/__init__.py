@@ -8,9 +8,12 @@ port's ``cuda``, ``shift_xla``, ``block``, ``xla``, ``c_exact``, ``ref``)
 and its dtype contract (uint8, uint16 and float input).  The uint8
 ``precise`` paths run on hand-written CUDA kernels built with ``nvcc`` at
 first use (``csrc/``); the float paths and the bit-exact profiles run as
-PyTorch tensor ops on the input's device.  Streaming, video, the
-multi-device paths (``mesh=``), the CLI and the image codecs are later
-slices: ``mesh=`` raises ``NotImplementedError`` naming its slice.
+PyTorch tensor ops on the input's device.  :class:`StreamingUpscaler`
+(row chunks of a frame of any height), :class:`VideoUpscaler` and
+:func:`upscale_y4m` (frame sequences, ``.y4m`` files) keep chunks and
+frame batches in flight between the host and one card.  The multi-device
+paths (``mesh=``), the CLI and the image codecs are later slices:
+``mesh=`` raises ``NotImplementedError`` naming its slice.
 
     - ``lanczos_torch.core``:   configuration, filter kernels, weight tables
       (copies of ``lanczos_tpu.core``'s framework-neutral modules)
@@ -18,7 +21,10 @@ slices: ``mesh=`` raises ``NotImplementedError`` naming its slice.
       ``lanczos_tpu.ref``)
     - ``lanczos_torch.ops``:    the plans, the kernels' wrappers, their
       plain PyTorch versions, the tensor-op paths and the routing
-    - ``lanczos_torch.models``: :class:`Upscaler` and :func:`upscale`
+    - ``lanczos_torch.models``: :class:`Upscaler` and :func:`upscale`,
+      streaming and video
+    - ``lanczos_torch.io``:     the Y4M container (a copy of
+      ``lanczos_tpu.io.y4m``)
     - ``lanczos_torch.utils``:  metrics and CUDA-event timing
 """
 
@@ -33,3 +39,5 @@ from lanczos_torch.core.config import (  # noqa: F401
     ResampleConfig,
 )
 from lanczos_torch.models.upscaler import Upscaler, upscale  # noqa: F401
+from lanczos_torch.models.streaming import StreamingUpscaler  # noqa: F401
+from lanczos_torch.models.video import VideoUpscaler, upscale_y4m  # noqa: F401

@@ -18,7 +18,11 @@ kernel's limits of the production kernel where it keeps its semantics
 bit-exact profiles identical bytes on CUDA and on the CPU (integer
 arithmetic); the gather, strided and block paths on CUDA against the CPU
 under the same limits (float output |Δ| ≤ 1e-3), block identical with
-TF32 allowed (it contracts fp32 in float64).
+TF32 allowed (it contracts fp32 in float64).  Streaming: the fused kernel
+on hand-built chunk plans under the fused kernel's limits against its
+plain version on the same plan; pipelined, resumed and earlier-yielded
+chunks identical bytes to a serial run's; the streamed peak of device
+memory within twice what ``depth``, the window and the chunk predict.
 """
 
 import numpy as np
@@ -414,3 +418,151 @@ def test_block_ignores_tf32(cuda):
     finally:
         torch.set_float32_matmul_precision("highest")
     assert torch.equal(tf32, exact)
+
+
+CHUNK_FAMILIES = [  # the reference's seven fused-chunk families: out, overrides, chunk
+    ((192, 128), {}, 32),
+    ((144, 96), {}, 24),
+    ((48, 32), {}, 16),
+    ((192, 128), {"edge_mode": "reflect"}, 32),
+    ((192, 128), {"dering": True}, 32),
+    ((192, 128), {"intermediate_quantize": True}, 32),
+    ((192, 128), {"align": "center"}, 32),
+]
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("outs,kw,chunk", CHUNK_FAMILIES)
+def test_chunk_plan_kernel_matches_plain_version(cuda, outs, kw, chunk, precision):
+    """``fused_call`` on a hand-built chunk plan (a window-rebased operator
+    and a shifted offset), and the streamed frame kernel against kernel."""
+    cfg = lanczos_torch.ResampleConfig.from_profile(
+        "precise", (96, 64), out_shape=outs, a=3, precision=precision, **kw)
+    sm = lanczos_torch.StreamingUpscaler(cfg, chunk_rows=chunk, chunk_backend="mxu")
+    assert sm.chunk_path == "fused" and sm.device.type == "cuda"
+    ops = sm._mxu
+    x = torch.from_numpy(np.random.default_rng(13).integers(
+        0, 256, (3, sm.win, 64), dtype=np.uint8)).to(cuda)
+    before = rc.launches[ops.kernel]
+    got = rc.fused_call(ops, x)
+    torch.cuda.synchronize()
+    assert rc.launches[ops.kernel] == before + 1
+    want = rc.fused_resample_reference(x, ops.plan, precision, ops.cfg.out_shape,
+                                       cfg.dering, cfg.intermediate_quantize)
+    d = (got.int() - want.int()).abs()
+    lim = 2 if cfg.intermediate_quantize and precision == "fp32" else LIMITS[precision][0]
+    assert int(d.max()) <= lim and float((d > 0).float().mean()) <= LIMITS[precision][1]
+    img = np.random.default_rng(14).integers(0, 256, (96, 64, 3), dtype=np.uint8)
+    before = rc.launches[ops.kernel]
+    out = sm(img)
+    assert rc.launches[ops.kernel] == before + sm.n_chunks
+    whole = lanczos_torch.Upscaler(cfg)(torch.from_numpy(img).to(cuda)).cpu().numpy()
+    assert np.abs(out.astype(int) - whole.astype(int)).max() <= (
+        1 if precision == "fp32" else 3)
+
+
+@pytest.mark.parametrize("backend", ["mxu", "shift", "gather"])
+def test_streaming_pipelined_equals_serial_under_a_sleeping_source(cuda, backend):
+    """Staging buffers and device blocks are reused under skew: a source
+    that sleeps at random, depth 3 with the prefetch thread, against a
+    serial run; a resumed run against the tail; earlier chunks stay valid."""
+    import time
+
+    cfg = lanczos_torch.ResampleConfig.from_profile("precise", (600, 256), scale=(2, 1), a=3)
+    img = np.random.default_rng(15).integers(0, 256, (600, 256, 3), dtype=np.uint8)
+    sm = lanczos_torch.StreamingUpscaler(cfg, chunk_rows=64, chunk_backend=backend)
+    naps = np.random.default_rng(16).random(64) * 0.004
+
+    def sleepy(lo, hi):
+        time.sleep(naps[lo % 64])
+        return img[lo:hi]
+
+    serial = list(sm.chunks(lambda lo, hi: img[lo:hi], depth=1, prefetch=False))
+    held = []
+    for y0, rows in sm.chunks(sleepy, depth=3, prefetch=True):
+        held.append((y0, rows, rows.copy()))
+    assert [y for y, _ in serial] == [y for y, _, _ in held]
+    for (_, a), (_, b, b_then) in zip(serial, held):
+        assert np.array_equal(a, b_then)
+        assert np.array_equal(b, b_then)  # not written again by a later chunk
+    resumed = list(sm.chunks(sleepy, start_chunk=5, depth=2))
+    assert [y for y, _ in resumed] == [y for y, _ in serial[5:]]
+    assert all(np.array_equal(a, b) for (_, a), (_, b) in zip(serial[5:], resumed))
+    want = lanczos_torch.Upscaler(cfg, backend="xla")(torch.from_numpy(img).to(cuda))
+    got = np.concatenate([a for _, a in serial])
+    assert np.abs(got.astype(int) - want.cpu().numpy().astype(int)).max() <= (backend == "mxu")
+
+
+def test_streaming_source_error_surfaces_and_the_device_stays_usable(cuda):
+    cfg = lanczos_torch.ResampleConfig.from_profile("precise", (600, 256), scale=(2, 1), a=3)
+    img = np.random.default_rng(17).integers(0, 256, (600, 256, 3), dtype=np.uint8)
+    sm = lanczos_torch.StreamingUpscaler(cfg, chunk_rows=64)
+
+    def dies(lo, hi):
+        if lo > 300:
+            raise OSError("decoder died")
+        return img[lo:hi]
+
+    with pytest.raises(OSError, match="decoder died"):
+        list(sm.chunks(dies, depth=3))
+    gen = sm.chunks(lambda lo, hi: img[lo:hi], depth=3)
+    next(gen)
+    gen.close()  # abandoned with chunks in flight
+    whole = lanczos_torch.Upscaler(cfg)(torch.from_numpy(img).to(cuda)).cpu().numpy()
+    assert np.abs(sm(img).astype(int) - whole.astype(int)).max() <= 1
+
+
+def test_streamed_peak_memory_is_bounded_by_the_chunk(cuda):
+    cfg = lanczos_torch.ResampleConfig.from_profile("precise", (4096, 1024), scale=(2, 1), a=3)
+    img = np.random.default_rng(18).integers(0, 256, (4096, 1024, 3), dtype=np.uint8)
+    sm = lanczos_torch.StreamingUpscaler(cfg, chunk_rows=256, chunk_backend="mxu")
+    sm(img)  # tables uploaded, staging buffers cached
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = sm(img)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    per_chunk = 3 * (sm.win * 1024 + sm.chunk * 2048)  # a window and a chunk of rows
+    assert per_chunk * 3 <= peak <= 2 * per_chunk * (3 + 1)  # depth 3, one chunk's temporaries
+    assert out.shape == (8192, 2048, 3)
+    assert peak < (img.nbytes + out.nbytes) / 3
+
+
+def test_video_and_y4m_equal_the_upscaler(cuda, tmp_path):
+    from lanczos_torch.io import y4m
+
+    cfg = lanczos_torch.ResampleConfig.from_profile("precise", (120, 160), scale=(2, 1), a=3)
+    video = np.random.default_rng(19).integers(0, 256, (7, 120, 160, 3), dtype=np.uint8)
+    single = lanczos_torch.Upscaler(cfg)
+    want = [single(torch.from_numpy(f).to(cuda)).cpu().numpy() for f in video]
+    vu = lanczos_torch.VideoUpscaler(cfg, batch=3, depth=2)
+    buf = np.empty_like(video[0])
+
+    def producer():
+        for f in video:
+            buf[...] = f
+            yield buf
+
+    before = rc.launches["fused_resample_fp32"]
+    outs = list(vu.frames(producer()))
+    assert rc.launches["fused_resample_fp32"] == before + 3
+    assert len(outs) == 7 and all(np.array_equal(a, b) for a, b in zip(outs, want))
+    assert np.array_equal(vu(video), np.stack(want))
+    rng = np.random.default_rng(20)
+    frames = [(rng.integers(0, 256, (48, 64), dtype=np.uint8),
+               rng.integers(0, 256, (24, 32), dtype=np.uint8),
+               rng.integers(0, 256, (24, 32), dtype=np.uint8)) for _ in range(5)]
+    y4m.write_y4m(str(tmp_path / "in.y4m"), frames, fps=(24, 1))
+    hdr = lanczos_torch.upscale_y4m(str(tmp_path / "in.y4m"), str(tmp_path / "out.y4m"),
+                                    scale=(2, 1), batch=2)
+    assert (hdr.width, hdr.height, hdr.fps) == (128, 96, (24, 1))
+    _, got = y4m.read_y4m(str(tmp_path / "out.y4m"))
+    assert len(got) == 5
+    for f_in, f_out in zip(frames, got):
+        for p_in, p_out in zip(f_in, f_out):
+            up = lanczos_torch.Upscaler(lanczos_torch.ResampleConfig.from_profile(
+                "precise", p_in.shape, scale=(2, 1), a=3))
+            want_p = up.planar(torch.from_numpy(p_in[None]).to(cuda))[0].cpu().numpy()
+            assert np.array_equal(p_out, want_p)
