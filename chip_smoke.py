@@ -57,7 +57,7 @@ not 0:
 11. the bit-exact profiles on the card: ``hls`` and ``c_oracle`` at small
    seeds drawn as ``hwcert.py`` draws its exact seeds (plus ``hls`` at
    P = 6 and 10), each byte-equal to its ``lanczos_torch.ref`` oracle (run
-   in worker processes meanwhile); at 4K→8K, ``c_oracle`` a=3 byte-equal
+   on host threads meanwhile); at 4K→8K, ``c_oracle`` a=3 byte-equal
    to ``c_oracle_upscale`` and ``hls`` a=2 byte-equal to the same module's
    run on the host CPU;
 12. the float paths at full width, each against a float64 gather:
@@ -90,7 +90,29 @@ not 0:
 17. times: the pinned copy rates of this run, a streamed 4K→8K frame
    serial and pipelined, pageable and pinned, and where its time goes; the
    tall frame; video frames/s at batch 1, 4 and 8; ``upscale_y4m`` beside
-   its reader, its writer and its kernels alone.
+   its reader, its writer and its kernels alone;
+18. the sharded fused path: 2 4K frames through ``ShardedUpscaler`` on
+   ``Mesh.local([cuda:0] * 8, (2, 4))`` in fp32, bf16, with dering and
+   with the quantized intermediate, channel groups on and off, each with
+   its launch count (R a frame, 2R with channel groups) and byte-equal to
+   ``Upscaler(cfg)`` on the card;
+19. the other sharded paths on (1, 4) at 4K→8K: gather (drop edges),
+   shift, ``hls`` a=2, ``c_oracle`` a=3 and uint16, each byte-equal to the
+   same path on one device;
+20. ``ShardedStreamingUpscaler`` (R = 4, ``chunk_rows=1024``) on the
+   17280×3840 frame, byte-equal to ``StreamingUpscaler``;
+21. ``VideoUpscaler(mesh=(2, 2))`` on 16 4K frames, byte-equal to
+   ``Upscaler`` a frame;
+22. a one-rank NCCL process group: ``Mesh.distributed`` running the fused
+   sharded path, equal to the local mesh; ``measure_ici_bw`` must raise;
+23. times on one card for R = 1, 2, 4, 8: each shard's kernel (direct
+   library calls), the halo copies, the sharded frame (events and wall),
+   and ``ici_halo_model`` for 4 NVLink cards fed this run's frame time
+   (a model, printed as one).
+
+The run starts no worker process (the host references run on threads).
+It makes itself the subreaper of whatever it starts, and at its end, and
+on any failure, stops each process of the run still alive and names it.
 
 Limits: fp32 ≤ 1 LSB on ≤ 1% of pixels (the quantized intermediate ≤ 2
 LSB: one flipped intermediate value spreads over the taps); bf16 ≤ 3 LSB
@@ -98,8 +120,8 @@ on ≤ 50% of pixels; kernel 2, the v1 kernel and the ablation kernels and
 their plain versions identical bytes; a streamed frame ≤ 1 LSB from the
 whole-frame kernel in fp32 (the reference's contract for the fused chunk
 path: edge rows come from a padded window, not from folded weights), in
-bf16 within the bf16 limits of it; the bit-exact profiles identical
-bytes; float output |Δ| ≤ 1e-3 (values 0–255).  The last lines are one
+bf16 within the bf16 limits of it; the bit-exact profiles and every
+sharded path identical bytes; float output |Δ| ≤ 1e-3 (values 0–255).  The last lines are one
 JSON object of the kernels and one of the device.  A v1 kernel's
 ``earlier_ms`` is the forced generic design's time on the same frame in
 the same run (for the streamed design's two kernels, of the whole
@@ -114,13 +136,15 @@ null for all: no single PyTorch call computes a Lanczos resample
 
 from __future__ import annotations
 
+import ctypes
 import json
-import multiprocessing
+import os
+import signal
 import subprocess
 import sys
 import tempfile
 import time
-from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -350,16 +374,16 @@ def bit_exact_and_float_paths(img: np.ndarray, x, smi: str) -> None:
     cfg_c = lanczos_torch.ResampleConfig.from_profile("c_oracle", FRAME, scale=(2, 1), a=3)
     cfg_h = lanczos_torch.ResampleConfig.from_profile("hls", FRAME, scale=(2, 1), a=2)
     t0 = time.perf_counter()
-    with ProcessPoolExecutor(8, mp_context=multiprocessing.get_context("spawn")) as procs, \
-            ThreadPoolExecutor(2) as threads:
-        refs = [
-            procs.submit(exact_oracle, prof, im, (sh[0] * sc[0] // sc[1], sh[1] * sc[0] // sc[1]),
-                         a, bp)
-            for _, prof, sh, sc, a, bp, im in seeds
-        ]
+    # host threads, not worker processes: the run starts no process it could leave behind
+    with ThreadPoolExecutor(3) as threads:
         big_c = threads.submit(c_oracle_upscale, img, *big_out, 3)
         big_h = threads.submit(
             lambda: Upscaler(cfg_h, device="cpu")(torch.from_numpy(img)).numpy())
+        refs = [
+            threads.submit(exact_oracle, prof, im,
+                           (sh[0] * sc[0] // sc[1], sh[1] * sc[0] // sc[1]), a, bp)
+            for _, prof, sh, sc, a, bp, im in seeds
+        ]
         for (name, prof, sh, sc, a, bp, im), ref in zip(seeds, refs):
             cfg = lanczos_torch.ResampleConfig.from_profile(
                 prof, sh, scale=sc, a=a, bit_precision=bp)
@@ -382,7 +406,7 @@ def bit_exact_and_float_paths(img: np.ndarray, x, smi: str) -> None:
             compare(f"{name} 4K->8K ({up.path}, peak {peak:.2f} GiB) vs {want}", y,
                     ref.result(), "exact")
             del y
-    print(f"  host oracles (worker processes and threads): "
+    print(f"  host oracles (3 threads): "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     torch.cuda.empty_cache()
 
@@ -905,6 +929,279 @@ def times_of_streaming_and_video(img, x, tall, sm_t, frames16, clip, clip_out, s
           f"{write_ms / n:.2f} ({write_ms / total:.2f}), kernels {kernels_ms / n:.3f} "
           f"({kernels_ms / total:.4f}; event), copies at the pinned rates {moved:.3f} "
           f"({moved * n / total:.3f})", flush=True)
+
+
+def sharding(img: np.ndarray, x, smi: str, kernels: list) -> None:
+    """Phases 18–23: row and batch sharding on one card, ``img`` (``x`` on
+    the card) its 4K frame; the fused kernels' records gain the launches of
+    the sharded main path."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    import lanczos_torch
+    from lanczos_torch.parallel import multihost
+    from lanczos_torch.parallel.mesh import Mesh, halo_exchange_rows
+    from lanczos_torch.ops import _build, resample_cuda as rc
+    from lanczos_torch.tools import probe_kernels as pk
+    from lanczos_torch.utils.timing import cuda_time_ms
+
+    dev = x.device
+    Upscaler, Sharded = lanczos_torch.Upscaler, lanczos_torch.ShardedUpscaler
+
+    def profile(shape, name="precise", **kw):
+        return lanczos_torch.ResampleConfig.from_profile(name, shape, **kw)
+
+    def mesh_of(shape):
+        return Mesh.local([dev] * (shape[0] * shape[1]), shape)
+
+    def identical(name: str, got, want) -> None:
+        same = got.shape == want.shape and got.dtype == want.dtype and torch.equal(got, want)
+        print(f"  {name}: {'identical' if same else 'DIFFER'}", flush=True)
+        if not same:
+            raise AssertionError(f"{name}: not byte-equal to the single-device result")
+
+    # ---- 18. the sharded fused path at full width
+    print("== 18. sharded fused path: 2 frames 2160x3840x3 -> 4320x7680x3 on "
+          "Mesh.local([cuda:0] * 8, (2, 4))", flush=True)
+    frames2 = torch.stack([x, torch.from_numpy(np.random.default_rng(18).integers(
+        0, 256, FRAME + (3,), dtype=np.uint8)).to(dev)])
+    mesh24 = mesh_of((2, 4))
+    sharded = {}
+    for name, kw in (("fp32", {}), ("bf16", {"precision": "bf16"}), ("fp32 dering",
+                     {"dering": True}), ("fp32 quantize", {"intermediate_quantize": True})):
+        cfg = profile(FRAME, scale=(2, 1), a=3, **kw)
+        want = Upscaler(cfg)(frames2)
+        for overlap in (True, False):
+            sh = Sharded(cfg, mesh24, overlap=overlap)
+            if not sh.use_mxu:
+                raise AssertionError(f"{name}: the sharded model did not take the fused path")
+            kernel = sh._tables(dev).fused.kernel
+            torch.cuda.synchronize()
+            reset_counts()
+            got = sh(frames2)
+            torch.cuda.synchronize()
+            n = read_counts()
+            expect = (2 if overlap else 1) * 8
+            plan = sh._plans[0]
+            print(f"  {name}, overlap {overlap}: shard plan tile {plan.tile_out}x{plan.cb}, kv "
+                  f"{plan.kv}, win_v {plan.win_v}, halo {sh.halo}; launches {n}", flush=True)
+            if n != {kernel: expect}:
+                raise AssertionError(f"{name}: expected {expect} launches of {kernel}, got {n}")
+            if overlap:
+                sharded[kernel] = expect
+            identical(f"{name} sharded (overlap {overlap}) vs Upscaler(cfg) on the card", got, want)
+            del got
+        del want
+    for k in kernels:
+        if k["name"] in sharded:
+            k["sharded_launches"] = sharded[k["name"]]
+    torch.cuda.empty_cache()
+
+    # ---- 19. the other sharded paths
+    print("== 19. the other sharded paths at 4K->8K on Mesh.local([cuda:0] * 4, (1, 4))",
+          flush=True)
+    mesh14 = mesh_of((1, 4))
+    x1 = x[None]
+    img16 = torch.from_numpy(np.random.default_rng(19).integers(
+        0, 65536, (1,) + FRAME + (3,), dtype=np.uint16)).to(dev)
+    others = [  # name, config, sharded backend, input, single-device backends it must equal
+        ("gather (drop edges)", profile(FRAME, scale=(2, 1), a=3, edge_mode="drop"), "gather",
+         x1, ("xla",)),
+        ("shift", profile(FRAME, scale=(2, 1), a=3), "gather", x1, ("xla", "shift_xla")),
+        ("hls a=2", profile(FRAME, "hls", scale=(2, 1), a=2), "auto", x1, ("auto",)),
+        ("c_oracle a=3", profile(FRAME, "c_oracle", scale=(2, 1), a=3), "auto", x1, ("auto",)),
+        ("uint16", profile(FRAME, scale=(2, 1), a=3), "auto", img16, ("xla",)),
+    ]
+    for name, cfg, backend, xin, singles in others:
+        sh = Sharded(cfg, mesh14, backend=backend)
+        path = ("shift" if sh.use_shift else "gather") if not (sh.fixed or sh.c_exact) else (
+            "hls" if sh.fixed else "c_exact")
+        reset_counts()
+        got = sh(xin)
+        torch.cuda.synchronize()
+        if read_counts():
+            raise AssertionError(f"{name}: launched {read_counts()}")
+        for single in singles:
+            up = Upscaler(cfg, backend=single)
+            identical(f"{name} sharded ({path}, halo {sh.halo}) vs Upscaler(backend="
+                      f"{single!r}: {up.path})", got, up(xin))
+        del got
+        torch.cuda.empty_cache()
+
+    # ---- 20. the sharded stream
+    print(f"== 20. ShardedStreamingUpscaler (R = 4, chunk_rows=1024) on {TALL[0]}x{TALL[1]}x3",
+          flush=True)
+    tall = np.random.default_rng(15).integers(0, 256, TALL + (3,), dtype=np.uint8)
+    cfg_t = profile(TALL, scale=(2, 1), a=3)
+    base = lanczos_torch.StreamingUpscaler(cfg_t, chunk_rows=1024, device=dev)
+    want = list(base.chunks(lambda lo, hi: tall[lo:hi]))
+    ssm = lanczos_torch.ShardedStreamingUpscaler(cfg_t, mesh14, chunk_rows=1024)
+    if ssm.chunk_path != "fused":
+        raise AssertionError(f"sharded stream: chunk path {ssm.chunk_path}")
+    torch.cuda.synchronize()
+    reset_counts()
+    got = list(ssm.chunks(lambda lo, hi: tall[lo:hi]))
+    n = read_counts()
+    print(f"  {ssm.n_chunks} chunks in {ssm.n_groups} super-chunks of 4; launches {n}",
+          flush=True)
+    if n != {"fused_resample_fp32": 4 * ssm.n_groups}:
+        raise AssertionError(f"sharded stream: launches {n}")
+    chunks_equal("sharded stream vs StreamingUpscaler", got, want)
+    del got, want
+
+    # ---- 21. video on a mesh
+    print("== 21. VideoUpscaler(mesh=Mesh.local([cuda:0] * 4, (2, 2))): 16 frames 4K->8K",
+          flush=True)
+    cfg = profile(FRAME, scale=(2, 1), a=3)
+    frames16 = np.random.default_rng(16).integers(0, 256, (16,) + FRAME + (3,), dtype=np.uint8)
+    vu = lanczos_torch.VideoUpscaler(cfg, batch=3, mesh=mesh_of((2, 2)))
+    reset_counts()
+    called = vu(frames16)
+    n = read_counts()
+    print(f"  batch {vu.batch} (3 rounded up to the data axis); launches {n}", flush=True)
+    if n != {"fused_resample_fp32": 16 // vu.batch * 4 * 2}:
+        raise AssertionError(f"video on a mesh: launches {n}")
+    single = Upscaler(cfg)
+    bad = [k for k in range(16) if not np.array_equal(
+        called[k], single(torch.from_numpy(frames16[k]).to(dev)).cpu().numpy())]
+    print(f"  every frame vs Upscaler(cfg): {'identical' if not bad else f'{bad} DIFFER'}",
+          flush=True)
+    if bad:
+        raise AssertionError(f"video on a mesh: frames {bad} differ")
+    del called, frames16
+
+    # ---- 22. a distributed mesh: one rank, NCCL
+    print("== 22. Mesh.distributed on a one-rank NCCL group", flush=True)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    multihost.initialize(f"127.0.0.1:{port}", num_processes=1, process_id=0, backend="nccl")
+    try:
+        dmesh = Mesh.distributed((2, 4), [dev] * 8)
+        print(f"  {dmesh}, backend {dist.get_backend()}", flush=True)
+        cfg = profile(FRAME, scale=(2, 1), a=3)
+        reset_counts()
+        got = Sharded(cfg, dmesh)(frames2)
+        torch.cuda.synchronize()
+        print(f"  launches {read_counts()}", flush=True)
+        identical("fused path on the distributed mesh vs the local mesh", got,
+                  Sharded(cfg, mesh24)(frames2))
+        try:
+            multihost.measure_ici_bw(dmesh)
+        except ValueError as e:
+            print(f"  measure_ici_bw on one card raised, as it must: {e}", flush=True)
+        else:
+            raise AssertionError("measure_ici_bw measured a ring on one card")
+        del got
+    finally:
+        dist.destroy_process_group()
+    del frames2
+
+    # ---- 23. times
+    print(f"== 23. sharding times on one card, 4K->8K fp32, one frame [{smi}]", flush=True)
+    cfg = profile(FRAME, scale=(2, 1), a=3)
+    whole_ops = rc.FusedOps(cfg, dev)
+    planar = x.permute(2, 0, 1).contiguous()
+    launch = _build.library().lanczos_fused_resample
+
+    def kernel_ms(call) -> float:
+        """Device ms of the one launch ``call`` makes, repeated as direct
+        library calls (the wrapper's host cost kept out)."""
+        args, out = pk.launch_args("lanczos_fused_resample", call)
+        ms = pk.time_ms(launch, args, iters=50)
+        del out  # the launches wrote into it
+        return ms
+
+    whole_ms = kernel_ms(lambda: rc.fused_call(whole_ops, planar))
+    print(f"  whole-frame kernel (50 direct calls; event): {whole_ms:.4f} ms", flush=True)
+    frame_ms = {}
+    for R in (1, 2, 4, 8):
+        mesh = mesh_of((1, R))
+        sh = Sharded(cfg, mesh, overlap=False)
+        t = sh._tables(dev)
+        ext = halo_exchange_rows(mesh, sh._blocks(x1), sh.halo)
+        planars = {p: e[0].permute(2, 0, 1).contiguous() for p, e in ext.items()}
+        shard_ms = [kernel_ms(lambda: rc.fused_call(t.fused, pl, wv=t.wv[p[1]]))
+                    for p, pl in planars.items()]
+        blocks = sh._blocks(x1)
+        halo_ms = cuda_time_ms(lambda: halo_exchange_rows(mesh, blocks, sh.halo))
+        serial_ev = cuda_time_ms(lambda: sh(x1))
+        serial_wall = wall_ms(lambda: sh(x1), iters=20)
+        over = Sharded(cfg, mesh)
+        over_ev, over_wall = cuda_time_ms(lambda: over(x1)), wall_ms(lambda: over(x1), iters=20)
+        frame_ms[R] = serial_ev
+        halo_bytes = sh.halo_spec()["bytes"]
+        print(f"  R={R}: shard kernels (direct calls; event) "
+              f"{', '.join(f'{m:.4f}' for m in shard_ms)} ms, sum {sum(shard_ms):.4f} "
+              f"({sum(shard_ms) / whole_ms:.2f}x the whole-frame kernel); halo exchange of the "
+              f"frame (event) {halo_ms:.4f} ms, {halo_bytes} B a direction a shard; sharded "
+              f"frame serial {serial_ev:.4f} ms event / {serial_wall:.4f} ms wall "
+              f"({R} launches: {serial_wall / R:.4f} ms wall a launch), overlapped (2 channel "
+              f"groups) {over_ev:.4f} / {over_wall:.4f} ({2 * R} launches)", flush=True)
+    model = multihost.ici_halo_model(cfg, 4, whole_ms * 1e-3)
+    print(f"  MODEL, not a measurement: ici_halo_model for 4 cards of one NVLink node "
+          f"(NVLink 4 at the 450 GB/s a direction of NVIDIA's specification), fed this run's "
+          f"whole-frame kernel time {whole_ms:.4f} ms: {json.dumps(model)}", flush=True)
+
+
+PR_SET_CHILD_SUBREAPER = 36  # <linux/prctl.h>
+
+
+def adopt_orphans() -> None:
+    """Make this process the subreaper of every process the run starts
+    (Linux): a grandchild whose parent exits is re-parented here, where
+    ``stop_leftovers`` finds it, and not to init."""
+    try:
+        ctypes.CDLL(None).prctl(PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0)
+    except (OSError, AttributeError):
+        pass
+
+
+def children() -> dict:
+    """pid -> (state, command line) of this process's children, from /proc."""
+    me, out = os.getpid(), {}
+    try:
+        pids = [p for p in os.listdir("/proc") if p.isdigit()]
+    except OSError:
+        return out
+    for pid in pids:
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                state, ppid = f.read().rsplit(")", 1)[1].split()[:2]
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace").strip()
+        except (OSError, ValueError):
+            continue
+        if int(ppid) == me:
+            out[int(pid)] = (state, cmd)
+    return out
+
+
+def stop_leftovers(out=sys.stdout) -> list:
+    """Stop every process of this run that is still alive (SIGTERM, SIGKILL
+    after 5 s) and reap those that have exited; returns, and prints to
+    ``out``, the command lines of those that were still running."""
+    running = {p: cmd for p, (state, cmd) in children().items() if state != "Z"}
+    for pid, cmd in running.items():
+        print(f"  stopping a process the run left running: pid {pid}: {cmd}", file=out,
+              flush=True)
+        try:
+            os.kill(pid, signal.SIGTERM)
+        except ProcessLookupError:
+            pass
+    deadline = time.monotonic() + 5.0
+    while any(s != "Z" for s, _ in children().values()) and time.monotonic() < deadline:
+        time.sleep(0.05)
+    for pid, (state, _) in children().items():
+        try:
+            if state != "Z":
+                os.kill(pid, signal.SIGKILL)
+            os.waitpid(pid, 0)
+        except (ProcessLookupError, ChildProcessError):
+            pass
+    return list(running.values())
 
 
 def main() -> None:
@@ -1481,7 +1778,10 @@ def main() -> None:
 
     bit_exact_and_float_paths(img, x, smi)
     streaming_and_video(img, x, smi, refs64, kernels)
+    sharding(img, x, smi, kernels)
 
+    left = stop_leftovers()
+    print(f"  processes the run left running: {len(left)} (stopped)", flush=True)
     print(f"  chip_smoke took {time.perf_counter() - T0:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1490,4 +1790,8 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    adopt_orphans()
+    try:
+        main()
+    finally:  # on every exit, a failed phase's too
+        stop_leftovers(sys.stderr)

@@ -11,9 +11,14 @@ first use (``csrc/``); the float paths and the bit-exact profiles run as
 PyTorch tensor ops on the input's device.  :class:`StreamingUpscaler`
 (row chunks of a frame of any height), :class:`VideoUpscaler` and
 :func:`upscale_y4m` (frame sequences, ``.y4m`` files) keep chunks and
-frame batches in flight between the host and one card.  The multi-device
-paths (``mesh=``), the CLI and the image codecs are later slices:
-``mesh=`` raises ``NotImplementedError`` naming its slice.
+frame batches in flight between the host and one card.
+:class:`ShardedUpscaler` and :class:`ShardedStreamingUpscaler`, and
+``mesh=`` on :func:`upscale`, :class:`VideoUpscaler` and :func:`upscale_y4m`,
+split rows and frames over a (data × rows) :class:`Mesh` of devices: one
+process's (``Mesh.local``; on one card the shards run one after another) or
+the ranks of a ``torch.distributed`` group (``Mesh.distributed``, after
+``parallel.multihost.initialize``).  The CLI and the image codecs are later
+slices.
 
     - ``lanczos_torch.core``:   configuration, filter kernels, weight tables
       (copies of ``lanczos_tpu.core``'s framework-neutral modules)
@@ -23,6 +28,8 @@ paths (``mesh=``), the CLI and the image codecs are later slices:
       plain PyTorch versions, the tensor-op paths and the routing
     - ``lanczos_torch.models``: :class:`Upscaler` and :func:`upscale`,
       streaming and video
+    - ``lanczos_torch.parallel``: the mesh and its halo exchange, row and
+      batch sharding, multi-process set-up and the scaling models
     - ``lanczos_torch.io``:     the Y4M container (a copy of
       ``lanczos_tpu.io.y4m``)
     - ``lanczos_torch.utils``:  metrics and CUDA-event timing
@@ -39,5 +46,10 @@ from lanczos_torch.core.config import (  # noqa: F401
     ResampleConfig,
 )
 from lanczos_torch.models.upscaler import Upscaler, upscale  # noqa: F401
-from lanczos_torch.models.streaming import StreamingUpscaler  # noqa: F401
+from lanczos_torch.models.streaming import (  # noqa: F401
+    ShardedStreamingUpscaler,
+    StreamingUpscaler,
+)
 from lanczos_torch.models.video import VideoUpscaler, upscale_y4m  # noqa: F401
+from lanczos_torch.parallel.mesh import Mesh  # noqa: F401
+from lanczos_torch.parallel.sharded import ShardedUpscaler  # noqa: F401

@@ -69,6 +69,7 @@ from lanczos_torch.ops.resample_gather import (
     store,
 )
 from lanczos_torch.ops.resample_strided import StridedOps, _axis_shift_pass
+from lanczos_torch.parallel.mesh import Mesh
 
 _NP_PAD = {"clamp": "edge", "reflect": "reflect"}  # fused windows: edge mode → np.pad
 _NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
@@ -353,6 +354,24 @@ class StreamingUpscaler:
             w = np.concatenate([w, np.zeros((padn, w.shape[1]), w.dtype)])
         return y0, y1 - y0, (rows, 0, self.win - rows.shape[0], "edge"), (idx, w)
 
+    def _submit(self, lane: Lane, args: tuple, dest=None) -> None:
+        """Stage one chunk's host arguments (:meth:`_host_chunk_args`) on
+        ``lane`` and submit this model's chunk function on them; the chunk's
+        rows go to ``dest(y0, n)`` where given.  The staging copy stays on
+        the lane's thread: the prefetch worker makes no CUDA call and starts
+        no second team of copy threads."""
+        y0, n, (rows, top, bot, mode), tables = args
+        if lane.pinned:
+            window = lane.host_empty(
+                (top + rows.shape[0] + bot,) + rows.shape[1:], torch_dtype(rows.dtype))
+            _window(window.numpy(), rows, top, bot, mode)
+        else:
+            window = torch.from_numpy(
+                np.ascontiguousarray(_window(None, rows, top, bot, mode)))
+        host = [window] + [torch.from_numpy(a) for a in tables]
+        lane.submit(y0, host, lambda *a: self._chunk_fn(*a)[:n],
+                    None if dest is None else [dest(y0, n)])
+
     def _run(self, get_rows, start_chunk, depth, prefetch, dest=None):
         """The generator behind :meth:`chunks`; ``dest(y0, n)`` names the
         host tensor a chunk's rows are read back into (default: a buffer
@@ -371,20 +390,7 @@ class StreamingUpscaler:
                     fut = pool.submit(self._host_chunk_args, ks[j + 1], get_rows)
                 else:
                     fut = None
-                # the staging copy stays on this thread: the worker makes no
-                # CUDA call and starts no second team of copy threads
-                if lane.pinned:
-                    window = lane.host_empty(
-                        (top + rows.shape[0] + bot,) + rows.shape[1:], torch_dtype(rows.dtype))
-                    _window(window.numpy(), rows, top, bot, mode)
-                else:
-                    window = torch.from_numpy(
-                        np.ascontiguousarray(_window(None, rows, top, bot, mode)))
-                host = [window] + [torch.from_numpy(a) for a in tables]
-                lane.submit(
-                    y0, host, lambda *a, n=n: self._chunk_fn(*a)[:n],
-                    None if dest is None else [dest(y0, n)],
-                )
+                self._submit(lane, (y0, n, (rows, top, bot, mode), tables), dest)
                 if len(lane) >= depth:
                     y0_, (out,) = lane.pop()
                     yield y0_, out
@@ -462,3 +468,124 @@ def _window(out: Optional[np.ndarray], rows: np.ndarray, top: int, bot: int,
             out[:top] = rows[src[:top]]
             out[top + m :] = rows[src[top + m :]]
     return out
+
+
+class ShardedStreamingUpscaler(StreamingUpscaler):
+    """Rows-sharded chunked execution (the port of the reference's
+    ``ShardedStreamingUpscaler``): output rows in super-chunks of ``R ×
+    chunk`` rows, one sub-chunk a position of the mesh's ``rows_axis``
+    (``R`` positions; other axes replicate and run nothing), each position
+    holding only its own sub-chunk's input window.
+
+    Halo rows are duplicated when the host scatters the windows (the
+    windows of neighbouring sub-chunks overlap by the vertical support), so
+    no device exchange is needed: streamed input starts on the host, and the
+    rows would cross the host link either way.  Every sub-chunk runs the
+    single-device chunk program (:meth:`StreamingUpscaler._chunk_fn`, the
+    fused kernel on the chunk plan where it applies) on the same window, so
+    the result is byte-identical to :class:`StreamingUpscaler` at the same
+    ``chunk_backend``.
+
+    The mesh must be one process's (``Mesh.local``); on one card
+    (``["cuda:0"] * R``) the sub-chunks run one after another.  Each
+    distinct device has its own ``_pipeline.Lane``; a super-chunk's ``R``
+    sub-chunks are submitted together and ``depth`` super-chunks stay in
+    flight.  The tail super-chunk is padded with repeats of its last real
+    sub-chunk (computed, not yielded), so every step runs ``R``
+    sub-chunks; ``start_chunk`` must be a multiple of ``R``."""
+
+    def __init__(
+        self,
+        cfg: ResampleConfig,
+        mesh,
+        rows_axis: str = "rows",
+        chunk_rows: int = 512,
+        dtype=torch.float32,
+        chunk_backend: str = "auto",
+    ):
+        if not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh= takes a lanczos_torch.parallel.mesh.Mesh, got "
+                            f"{type(mesh).__name__}")
+        if not mesh.is_local:
+            raise NotImplementedError(
+                "the sharded stream's host feeds one process's devices: pass a "
+                "Mesh.local (each rank may stream its own frames)")
+        self.mesh, self.rows_axis = mesh, rows_axis
+        k = mesh.axis(rows_axis)
+        self.R = mesh.shape[rows_axis]
+        origin = [0] * len(mesh.axis_names)
+        self._ring = []  # the device of each sub-chunk of a super-chunk
+        for r in range(self.R):
+            origin[k] = r
+            self._ring.append(mesh.device(tuple(origin)))
+        super().__init__(cfg, chunk_rows=chunk_rows, dtype=dtype,
+                         chunk_backend=chunk_backend, device=self._ring[0])
+        self.n_groups = -(-self.n_chunks // self.R)
+        self._models = {self.device: self}
+        for dev in self._ring:  # the same chunk program's tables on each device
+            if dev not in self._models:
+                self._models[dev] = StreamingUpscaler(
+                    cfg, chunk_rows=chunk_rows, dtype=dtype, chunk_backend=chunk_backend,
+                    device=dev)
+
+    def _host_group_args(self, g: int, get_rows) -> list:
+        """Host prep for super-chunk g: the R sub-chunks' argument sets.
+        Tail groups pad with the last real sub-chunk's arguments (n = 0
+        rows kept); ``get_rows`` calls stay ascending and serialized."""
+        group, prev = [], None
+        for r in range(self.R):
+            k = g * self.R + r
+            if k < self.n_chunks:
+                prev = self._host_chunk_args(k, get_rows)
+                group.append(prev)
+            else:
+                y0, _, window, tables = prev
+                group.append((y0, 0, window, tables))
+        return group
+
+    def _run(self, get_rows, start_chunk, depth, prefetch, dest=None):
+        if start_chunk % self.R:
+            raise ValueError(
+                f"start_chunk must be a multiple of the rows-axis size "
+                f"{self.R} (one device step = {self.R} sub-chunks)"
+            )
+        depth = max(1, depth)
+        gs = range(start_chunk // self.R, self.n_groups)
+        pool = ThreadPoolExecutor(max_workers=1) if prefetch and len(gs) > 1 else None
+        lanes = {dev: Lane(dev, self.pinned) for dev in self._models}
+        fut, inflight = None, 0
+        try:
+            for j, g in enumerate(gs):
+                group = self._host_group_args(g, get_rows) if fut is None else fut.result()
+                if pool is not None and j + 1 < len(gs):
+                    fut = pool.submit(self._host_group_args, gs[j + 1], get_rows)
+                else:
+                    fut = None
+                for dev, args in zip(self._ring, group):
+                    self._models[dev]._submit(lanes[dev], args, dest)
+                inflight += 1
+                if inflight >= depth:
+                    yield from self._drain(lanes)
+                    inflight -= 1
+            for _ in range(inflight):
+                yield from self._drain(lanes)
+        finally:
+            if pool is not None:
+                _join_prefetch(pool, fut)
+            for lane in lanes.values():
+                lane.close()
+
+    def _drain(self, lanes: dict):
+        """The oldest super-chunk's sub-chunks, in order (padding dropped)."""
+        for dev in self._ring:
+            y0, (out,) = lanes[dev].pop()
+            if out.shape[0]:
+                yield y0, out
+
+    def chunks(self, get_rows, start_chunk: int = 0, depth: int = 2, prefetch: bool = True):
+        """Yield (y0, chunk_output) pairs, R sub-chunks per device step.
+
+        Same contract as the base class; ``start_chunk`` (for resume) must
+        align to a super-chunk boundary (a multiple of the rows-axis size
+        R: each device step produces R sub-chunks at once)."""
+        return self._run(get_rows, start_chunk, depth, prefetch)

@@ -416,13 +416,14 @@ def upscale(
     A bare 2-D (H, W) image is treated as single-channel grayscale and
     returned 2-D.  A torch tensor runs on its own device; a numpy array on
     ``device``.  Repeat calls with the same (config, backend, device) reuse
-    one :class:`Upscaler`.  ``mesh`` (row and batch sharding) is the
-    multi-device slice, not ported yet (ROADMAP queue 1, item 9)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (row and batch sharding) comes with the multi-device "
-            "slice (ROADMAP queue 1, item 9)"
-        )
+    one :class:`Upscaler`.
+
+    ``mesh``: run row+batch sharded on a (data × rows)
+    :class:`~lanczos_torch.parallel.mesh.Mesh` through
+    :class:`~lanczos_torch.parallel.sharded.ShardedUpscaler` (input batched
+    (B, H, W, C) with B divisible by the data-axis size; ``backend`` one of
+    ``"auto"``, ``"mxu"``, ``"gather"``; ``device`` unused: each shard runs
+    on its position's device)."""
     gray2d = getattr(img, "ndim", 0) == 2
     if gray2d:
         img = img[..., None]
@@ -430,5 +431,10 @@ def upscale(
     cfg = ResampleConfig.from_profile(
         profile, (h, w), out_shape=out_shape, scale=scale, a=a, **overrides
     )
+    if mesh is not None:
+        from lanczos_torch.parallel.sharded import ShardedUpscaler
+
+        out = ShardedUpscaler(cfg, mesh, backend=backend)(img)
+        return out[..., 0] if gray2d else out
     out = _cached_upscaler(cfg, backend, device)(img)
     return out[..., 0] if gray2d else out

@@ -26,11 +26,27 @@ import torch
 from lanczos_torch.core.config import ResampleConfig
 from lanczos_torch.models._pipeline import Lane, host_copy, require_device, torch_dtype
 from lanczos_torch.models.upscaler import Upscaler
+from lanczos_torch.parallel.mesh import Mesh
 
-_NO_MESH = (
-    "mesh= (frames data-parallel, rows sharded) comes with the multi-device "
-    "slice (ROADMAP queue 1, item 9)"
-)
+
+def _sharded(cfg: ResampleConfig, mesh, data_axis: str, rows_axis: str, backend: str):
+    """A ``ShardedUpscaler`` over ``mesh`` and the device its results land
+    on (this process's first position's)."""
+    from lanczos_torch.parallel.sharded import ShardedUpscaler
+
+    model = ShardedUpscaler(cfg, mesh, data_axis=data_axis, rows_axis=rows_axis,
+                            backend=backend)
+    return model, mesh.device(mesh.local_positions()[0])
+
+
+def _round_to_data(batch: int, mesh, data_axis: str) -> int:
+    """``batch`` rounded up to a multiple of the data-axis size (every
+    launch keeps one shape)."""
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh= takes a lanczos_torch.parallel.mesh.Mesh, got "
+                        f"{type(mesh).__name__}")
+    d_n = mesh.shape[data_axis]
+    return -(-max(1, batch) // d_n) * d_n
 
 
 def _stack_padded(lane: Lane, frames, b: int) -> torch.Tensor:
@@ -129,8 +145,16 @@ class VideoUpscaler:
     ``depth`` batches are kept in flight on the device: deep enough to hide
     host transfer latency, shallow enough to bound device memory.
     ``device`` is where the frames are computed (``"cuda"`` raises where
-    CUDA is absent).  ``mesh`` (a data × rows mesh of devices) is the
-    multi-device slice, not ported yet.
+    CUDA is absent).
+
+    With ``mesh`` given (a :class:`~lanczos_torch.parallel.mesh.Mesh`), the
+    per-batch model is a
+    :class:`~lanczos_torch.parallel.sharded.ShardedUpscaler` over its
+    (data × rows) axes: frames data-parallel across the ``data`` axis, each
+    frame's rows split with a ring halo exchange.  ``batch`` is rounded up
+    to a multiple of the data-axis size, batches are staged for the device
+    of this process's first position (``device`` is then unused), and the
+    results are the unsharded model's bytes.
     """
 
     def __init__(
@@ -144,12 +168,15 @@ class VideoUpscaler:
         rows_axis: str = "rows",
         device="cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError(_NO_MESH)
         self.cfg = cfg
-        self.device = require_device(device)
-        self.model = Upscaler(cfg, backend=backend, device=self.device)
-        self.batch = max(1, batch)
+        self.mesh = mesh
+        if mesh is not None:
+            self.batch = _round_to_data(batch, mesh, data_axis)
+            self.model, self.device = _sharded(cfg, mesh, data_axis, rows_axis, backend)
+        else:
+            self.device = require_device(device)
+            self.model = Upscaler(cfg, backend=backend, device=self.device)
+            self.batch = max(1, batch)
         self.depth = max(1, depth)
 
     def _submit(self, lane: Lane, stack: torch.Tensor, n: int, dests=None) -> None:
@@ -240,16 +267,23 @@ def upscale_y4m(
     are dispatch-bound otherwise); ``depth`` plane-batches stay in flight
     to overlap host I/O with device compute (the frame-level analog of the
     reference's DATAFLOW overlap, ``lanczos.cpp:72-82``).  ``device`` is
-    where the planes are computed; ``mesh`` is the multi-device slice, not
-    ported yet.
+    where the planes are computed.
+
+    With ``mesh`` given, each plane batch runs through a
+    :class:`~lanczos_torch.parallel.sharded.ShardedUpscaler` over the
+    (data × rows) mesh: ``batch`` is rounded up to a multiple of the
+    data-axis size, and every plane's in/out heights must divide the
+    rows-axis size (chroma planes included).  Byte-identical to the
+    unsharded run of the same profile.
 
     Returns the output :class:`lanczos_torch.io.y4m.Y4MHeader`.
     """
     from lanczos_torch.io.y4m import Y4MError, Y4MHeader, Y4MReader, Y4MWriter
 
     if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
-    device = require_device(device)
+        batch = _round_to_data(batch, mesh, data_axis)
+    else:
+        device = require_device(device)
     with Y4MReader(src) as reader:
         hdr = reader.header
         shapes = [(hdr.height, hdr.width)]
@@ -265,7 +299,11 @@ def upscale_y4m(
                 ),
                 scale=scale, a=a, **overrides,
             )
-            models.append(Upscaler(cfg, backend=backend, device=device))
+            if mesh is not None:
+                model, device = _sharded(cfg, mesh, data_axis, rows_axis, backend)
+                models.append(model)
+            else:
+                models.append(Upscaler(cfg, backend=backend, device=device))
         oh, ow = models[0].cfg.out_shape
         if hdr.chroma_shape is not None:
             coh, cow = models[1].cfg.out_shape
@@ -303,10 +341,13 @@ def upscale_y4m(
             staged = [_stack_padded(lane, [f[0][None] for f in frames], batch)]
             if len(models) > 1:
                 staged.append(_stack_padded(lane, [np.stack(f[1:]) for f in frames], batch))
-            lane.submit(
-                len(frames), staged,
-                lambda *planes: [m.planar(x) for m, x in zip(models, planes)],
-            )
+            lane.submit(len(frames), staged, run_planes)
+
+        def run_planes(*planes):
+            if mesh is None:
+                return [m.planar(x) for m, x in zip(models, planes)]
+            # the sharded path takes (B, h, w, P) frames
+            return [m(x.movedim(1, -1)).movedim(-1, 1) for m, x in zip(models, planes)]
 
         with Y4MWriter(dst, out_hdr) as writer:
 

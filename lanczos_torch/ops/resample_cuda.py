@@ -90,8 +90,10 @@ class FusedPlan:
     each output's two central taps (``op.idx[:, s-1]``, ``op.idx[:, s]``
     less the band start, ``s`` the support per side): ``center_v``
     ``(num_tiles, 2, tile_out)`` and ``center_h`` ``(n_uniq, 2, cb)``,
-    int32, zero past a ragged edge.  Compared by identity (it keys the
-    reference's table cache)."""
+    int32, zero past a ragged edge.  ``win_v``, where not 0, is the least
+    length of the vertical pass's shared windows (the row-sharded path
+    gives every shard's plan one length).  Compared by identity (it keys
+    the reference's table cache)."""
 
     tile_out: int
     kv: int
@@ -106,6 +108,7 @@ class FusedPlan:
     wh: np.ndarray
     center_v: Optional[np.ndarray] = None
     center_h: Optional[np.ndarray] = None
+    win_v: int = 0
 
     def smem_bytes(self) -> int:
         """Shared memory one block of the CUDA kernel needs (its launcher's
@@ -163,6 +166,7 @@ def build_fused_plan(
     dv: int,
     off_v: int,
     cb_target: int = 128,
+    kv: int = 0,
 ) -> Optional[FusedPlan]:
     """Plan from prebuilt banded operators (``_build_mxu_plan``'s meaning).
 
@@ -170,8 +174,10 @@ def build_fused_plan(
     plan carries the central-tap offsets.  The vertical band of tile ``i``
     starts at the exact rational floor ``(2·lo·dv + off_v)//(2·nv) −
     (op_v.a − 1)`` (Python floor division: with ``align="center"`` the
-    numerator can be negative), clipped into the image; the horizontal band
-    of block ``b`` starts at its lowest tap.  The offsets come from the
+    numerator can be negative), clipped into the image, and is ``kv`` rows
+    tall, no fewer than the ``kv`` given (the row-sharded path builds every
+    shard's plan to one height); the horizontal band of block ``b`` starts
+    at its lowest tap.  The offsets come from the
     operators' clipped indices, so drop-edge dering clamps to the edge
     pixels as the gather path does.  Returns None where a window cannot
     cover its tile or one block's band and intermediate exceed shared
@@ -188,7 +194,6 @@ def build_fused_plan(
     def v_start_raw(lo: int) -> int:
         return (2 * lo * dv + off_v) // (2 * nv) - back_v
 
-    kv = 0
     for i in range(num):
         lo, hi = i * tile, min((i + 1) * tile, oh)
         kv = max(kv, int(op_v.idx[lo:hi].max()) - max(v_start_raw(lo), 0) + 1)
@@ -354,44 +359,50 @@ def plan_weights(plan: FusedPlan, precision: Precision) -> tuple:
     """``(wv, wh)`` as float32 arrays with the values the kernel uses: the
     plan's weights in fp32, or rounded to bf16 with each output row's
     (``wv``) and column's (``wh``) tap sum kept."""
+    return _kernel_weights(plan.wv, 2, precision), _kernel_weights(plan.wh, 1, precision)
+
+
+def _kernel_weights(w: np.ndarray, axis: int, precision: Precision) -> np.ndarray:
     if Precision(precision) == Precision.BF16:
-        return _round_bf16(plan.wv, 2), _round_bf16(plan.wh, 1)
-    return plan.wv.astype(np.float32), plan.wh.astype(np.float32)
+        return _round_bf16(w, axis)
+    return w.astype(np.float32)
 
 
 GROUP = 4  # outputs that share one window in the kernel's register tile
 
 
-def compact_runs(w: np.ndarray) -> tuple:
+def compact_runs(w: np.ndarray, length: int = 1) -> tuple:
     """The compact form of banded rows: ``w`` is ``(n, size, K)``, each row
     ``w[n, r]`` one run of nonzeros; returns ``first`` ``(n, size)`` int32,
     the band-relative first tap of each row, and ``taps`` ``(n, size, T)``,
-    its run, ``T`` the longest run in ``w`` and shorter runs zero-filled.
-    ``first`` is lowered where a run would pass ``K``, so every
-    ``first + t`` is a valid band index; an all-zero row has first 0."""
+    its run, ``T`` the longest run in ``w`` (at least ``length``, at most
+    ``K``) and shorter runs zero-filled.  ``first`` is lowered where a run
+    would pass ``K``, so every ``first + t`` is a valid band index; an
+    all-zero row has first 0."""
     w = np.asarray(w)
     k = w.shape[-1]
     nz = w != 0
     has = nz.any(-1)
     first = np.where(has, nz.argmax(-1), 0)
     last = np.where(has, k - 1 - nz[..., ::-1].argmax(-1), -1)
-    t = max(int((last - first + 1).max()), 1)
+    t = min(max(int((last - first + 1).max()), length, 1), k)
     first = np.minimum(first, k - t)
     taps = np.take_along_axis(w, first[..., None] + np.arange(t), -1)
     return first.astype(np.int32), np.ascontiguousarray(taps)
 
 
-def group_windows(w: np.ndarray, group: int = GROUP) -> tuple:
+def group_windows(w: np.ndarray, group: int = GROUP, length: int = 1) -> tuple:
     """One shared window per ``group`` consecutive rows of ``w`` ``(n,
     size, K)`` (``size`` a multiple of ``group``): returns ``base`` ``(n,
     size/group)`` int32, the first band index any row of the group touches,
     and ``win`` ``(n, size/group, L, group)``, ``win[n, g, j, e] =
-    w[n, group·g + e, base[n, g] + j]``, ``L`` the longest window in ``w``.
-    ``base`` is lowered where a window would pass ``K``."""
+    w[n, group·g + e, base[n, g] + j]``, ``L`` the longest window in ``w``
+    (at least ``length``, at most ``K``).  ``base`` is lowered where a
+    window would pass ``K``."""
     w = np.asarray(w)
     n, size, k = w.shape
     wg = w.reshape(n, size // group, group, k)
-    first, taps = compact_runs((wg != 0).any(2).astype(np.int8))
+    first, taps = compact_runs((wg != 0).any(2).astype(np.int8), length)
     idx = first[..., None] + np.arange(taps.shape[-1])  # (n, groups, L)
     win = np.take_along_axis(wg, idx[:, :, None, :], -1)  # (n, groups, group, L)
     return first, np.ascontiguousarray(np.swapaxes(win, 2, 3))
@@ -400,14 +411,15 @@ def group_windows(w: np.ndarray, group: int = GROUP) -> tuple:
 @functools.lru_cache(maxsize=16)
 def _window_lengths(plan: FusedPlan) -> tuple:
     """``(win_v, win_h)`` of the plan's shared windows, from where its
-    float64 weights are nonzero (no shorter than any precision's)."""
-    def length(w: np.ndarray) -> int:
+    float64 weights are nonzero (no shorter than any precision's, nor than
+    the plan's ``win_v``)."""
+    def length(w: np.ndarray, least: int = 1) -> int:
         n, size, k = w.shape
         padded = np.zeros((n, _round_up(size, GROUP), k), bool)
         padded[:, :size] = w != 0
-        return group_windows(padded)[1].shape[2]
+        return group_windows(padded, length=least)[1].shape[2]
 
-    return length(plan.wv), length(np.swapaxes(plan.wh, 1, 2))
+    return length(plan.wv, plan.win_v), length(np.swapaxes(plan.wh, 1, 2))
 
 
 def plan_runs(plan: FusedPlan, precision: Precision) -> tuple:
@@ -419,24 +431,36 @@ def plan_runs(plan: FusedPlan, precision: Precision) -> tuple:
     return compact_runs(wv) + compact_runs(np.swapaxes(wh, 1, 2))
 
 
-@functools.lru_cache(maxsize=8)
-def _reference_tables(plan: FusedPlan, precision: Precision, device: str):
-    first_v, taps_v, first_h, taps_h = plan_runs(plan, precision)
-    uniq_h = plan.uniq_h.astype(np.int64)
-    starts_v = plan.starts_v.astype(np.int64)[:, None]
-    starts_h = plan.starts_h.astype(np.int64)[:, None]
-    tables = [
-        (starts_v + first_v).reshape(-1),  # input row of each output row's first tap
-        taps_v.reshape(-1, taps_v.shape[-1]),
-        (starts_h + first_h[uniq_h]).reshape(-1),  # likewise per output column
-        taps_h[uniq_h].reshape(-1, taps_h.shape[-1]),
-    ]
-    if plan.center_v is not None:  # input rows and intermediate columns of the bounds
-        tables.append((starts_v[:, None] + plan.center_v).transpose(1, 0, 2).reshape(2, -1))
-        center_h = plan.center_h.astype(np.int64)[uniq_h]
-        tables.append((starts_h[:, None] + center_h).transpose(1, 0, 2).reshape(2, -1))
+def _to_device(tables: list, device: str) -> tuple:
     return tuple(torch.from_numpy(np.ascontiguousarray(t)).to(torch.device(device))
                  for t in tables)
+
+
+@functools.lru_cache(maxsize=16)
+def _reference_vertical(plan: FusedPlan, precision: Precision, device: str):
+    """The plain version's vertical tables: the input row of each output
+    row's first tap, its run of taps and, for a dering plan, the input rows
+    of its two bounds."""
+    first_v, taps_v = compact_runs(_kernel_weights(plan.wv, 2, precision))
+    starts_v = plan.starts_v.astype(np.int64)[:, None]
+    tables = [(starts_v + first_v).reshape(-1), taps_v.reshape(-1, taps_v.shape[-1])]
+    if plan.center_v is not None:
+        tables.append((starts_v[:, None] + plan.center_v).transpose(1, 0, 2).reshape(2, -1))
+    return _to_device(tables, device)
+
+
+@functools.lru_cache(maxsize=8)
+def _reference_horizontal(plan: FusedPlan, precision: Precision, device: str):
+    """Likewise per output column: its first intermediate column, its run
+    and the columns of its two bounds."""
+    first_h, taps_h = compact_runs(np.swapaxes(_kernel_weights(plan.wh, 1, precision), 1, 2))
+    uniq_h = plan.uniq_h.astype(np.int64)
+    starts_h = plan.starts_h.astype(np.int64)[:, None]
+    tables = [(starts_h + first_h[uniq_h]).reshape(-1), taps_h[uniq_h].reshape(-1, taps_h.shape[-1])]
+    if plan.center_h is not None:
+        center_h = plan.center_h.astype(np.int64)[uniq_h]
+        tables.append((starts_h[:, None] + center_h).transpose(1, 0, 2).reshape(2, -1))
+    return _to_device(tables, device)
 
 
 def _tap_pass(x: torch.Tensor, first: torch.Tensor, taps: torch.Tensor, axis: int):
@@ -463,6 +487,7 @@ def _trunc_clip(v: torch.Tensor) -> torch.Tensor:
 def fused_resample_reference(
     x: torch.Tensor, plan: FusedPlan, precision: Precision | str = Precision.FP32,
     out_shape: Optional[tuple] = None, dering: bool = False, quantize: bool = False,
+    wv: Optional["VerticalTables"] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of the fused kernel: (NC, H, W) uint8 →
     (NC, OH, OW) uint8 on the same tiles, starts and deduplicated blocks,
@@ -481,14 +506,20 @@ def fused_resample_reference(
     but fused (``fmaf``) where this takes a multiply and then an add, so
     the two agree to the rounding of an fp32 sum, not byte for byte: the
     kernel is held to fp32 ≤ 1 LSB on ≤ 1% of pixels (quantized
-    intermediate ≤ 2 LSB), bf16 ≤ 3 LSB on ≤ 50%."""
+    intermediate ≤ 2 LSB), bf16 ≤ 3 LSB on ≤ 50%.
+
+    ``wv`` (one shard's :class:`VerticalTables`) replaces the plan's
+    vertical pass with the shard's, as :func:`fused_call`'s ``wv=`` does."""
     precision = Precision(precision)
     if x.dtype != torch.uint8 or x.dim() != 3:
         raise ValueError(f"expected (NC, H, W) uint8, got {tuple(x.shape)} {x.dtype}")
-    if dering and plan.center_v is None:
+    vplan = plan if wv is None else wv.plan
+    if dering and (vplan.center_v is None or plan.center_h is None):
         raise ValueError("dering needs a plan with central-tap offsets")
     nc, h, w = x.shape
-    rows, taps_v, cols, taps_h, *centers = _reference_tables(plan, precision, str(x.device))
+    rows, taps_v, *bounds_v = _reference_vertical(vplan, precision, str(x.device))
+    cols, taps_h, *bounds_h = _reference_horizontal(plan, precision, str(x.device))
+    centers = bounds_v + bounds_h if dering else []
     # zero beyond the image, as the kernel's masked band loads
     hp = max(h, int(rows.max()) + taps_v.shape[1])
     wp = max(w, int(cols.max()) + taps_h.shape[1])
@@ -527,36 +558,89 @@ def kernel_layout(plan: FusedPlan, precision: Precision) -> dict:
     are fp32 values that bf16 holds).  Then the int32 starts, for a dering
     plan the central-tap offsets ``cv (num_tiles, 2, tile_p)`` and ``ch
     (n_uniq, 2, cb_p)`` zero-padded alike, and :func:`smem_layout`'s
-    sizes."""
+    sizes.  The vertical half is :func:`vertical_layout`'s."""
     tile, cb = plan.tile_out, plan.cb
     sizes = smem_layout(tile, plan.kv, cb, plan.kh)
-    tile_p, cb_p = sizes["tile_p"], sizes["cb_p"]
-    wv, wh = plan_weights(plan, precision)
-    wvp = np.zeros((plan.num_tiles, tile_p, plan.kv), np.float32)
-    wvp[:, :tile] = wv
+    cb_p = sizes["cb_p"]
+    wh = _kernel_weights(plan.wh, 1, precision)
     whp = np.zeros((wh.shape[0], cb_p, plan.kh), np.float32)
     whp[:, :cb] = np.swapaxes(wh, 1, 2)
-    base_v, win_v = group_windows(wvp)
     base_h, win_h = group_windows(whp)
     centers = {}
-    if plan.center_v is not None:
-        cv = np.zeros((plan.num_tiles, 2, tile_p), np.int32)
-        cv[:, :, :tile] = plan.center_v
+    if plan.center_h is not None:
         ch = np.zeros((wh.shape[0], 2, cb_p), np.int32)
         ch[:, :, :cb] = plan.center_h
-        centers = dict(cv=cv, ch=ch)
+        centers = dict(ch=ch)
     return dict(
-        wv=np.ascontiguousarray(np.swapaxes(win_v, 1, 2)),
-        wh=np.ascontiguousarray(np.swapaxes(win_h, 1, 2)),
-        base_v=base_v, base_h=base_h,
-        starts_v=plan.starts_v.astype(np.int32),
+        vertical_layout(plan, precision),
+        wh=np.ascontiguousarray(np.swapaxes(win_h, 1, 2)), base_h=base_h,
         starts_h=plan.starts_h.astype(np.int32),
         uniq_h=plan.uniq_h.astype(np.int32),
-        tile=tile, tile_p=tile_p, kv=plan.kv, cb=cb, cb_p=cb_p, kh=plan.kh,
-        win_v=win_v.shape[2], win_h=win_h.shape[2], bw=sizes["bw"], mw=sizes["mw"],
-        stage_w=sizes["stage_w"], n_cb=plan.n_cb, num_tiles=plan.num_tiles,
+        tile=tile, cb=cb, cb_p=cb_p, kh=plan.kh,
+        win_h=win_h.shape[2], bw=sizes["bw"], mw=sizes["mw"],
+        stage_w=sizes["stage_w"], n_cb=plan.n_cb,
         **centers,
     )
+
+
+VERTICAL_FIELDS = ("kv", "tile_p", "win_v", "num_tiles")  # what a shard's tables must share
+
+
+def vertical_layout(plan: FusedPlan, precision: Precision) -> dict:
+    """The vertical half of :func:`kernel_layout`: ``wv``, ``base_v``,
+    ``starts_v`` and, for a dering plan, ``cv``, with the integer fields of
+    :data:`VERTICAL_FIELDS`.  The windows are at least ``plan.win_v``
+    long."""
+    tile_p = _round_up(plan.tile_out, 8)
+    wv = _kernel_weights(plan.wv, 2, precision)
+    wvp = np.zeros((plan.num_tiles, tile_p, plan.kv), np.float32)
+    wvp[:, : plan.tile_out] = wv
+    base_v, win_v = group_windows(wvp, length=plan.win_v)
+    lay = dict(
+        wv=np.ascontiguousarray(np.swapaxes(win_v, 1, 2)), base_v=base_v,
+        starts_v=plan.starts_v.astype(np.int32),
+        kv=plan.kv, tile_p=tile_p, win_v=win_v.shape[2], num_tiles=plan.num_tiles,
+    )
+    if plan.center_v is not None:
+        cv = np.zeros((plan.num_tiles, 2, tile_p), np.int32)
+        cv[:, :, : plan.tile_out] = plan.center_v
+        lay["cv"] = cv
+    return lay
+
+
+@functools.lru_cache(maxsize=8)
+def _vertical_fields(plan: FusedPlan, precision: Precision) -> dict:
+    lay = vertical_layout(plan, precision)
+    return {k: lay[k] for k in VERTICAL_FIELDS}
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class VerticalTables:
+    """One row shard's vertical tables for a plan every shard shares
+    (``fused_call(ops, x, wv=tables)``; the port of the ``wv=`` override of
+    ``_fused_call_mxu``): ``plan`` is the shard's own plan, whose vertical
+    fields (``wv``, ``starts_v``, ``center_v``) are the tables' source and
+    whose horizontal fields equal the shared plan's; ``fields`` its
+    :data:`VERTICAL_FIELDS`, which must equal the shared plan's; ``tensors``
+    the kernel's ``wv``, ``base_v``, ``starts_v`` (and ``cv``) on a CUDA
+    device, None on the CPU, where the plain version reads ``plan``."""
+
+    plan: FusedPlan
+    precision: Precision
+    fields: dict
+    tensors: Optional[dict]
+
+
+def vertical_tables(plan: FusedPlan, precision: Precision, device="cuda") -> VerticalTables:
+    """A shard's :class:`VerticalTables` on ``device``."""
+    device = torch.device(device)
+    lay = vertical_layout(plan, precision)
+    tensors = None
+    if device.type == "cuda":
+        tensors = {k: torch.from_numpy(v).to(device)
+                   for k, v in lay.items() if isinstance(v, np.ndarray)}
+    return VerticalTables(plan, Precision(precision),
+                          {k: lay[k] for k in VERTICAL_FIELDS}, tensors)
 
 
 def _check_plan(plan: FusedPlan, cfg: ResampleConfig) -> None:
@@ -736,18 +820,38 @@ def make_fused_ops(cfg: ResampleConfig, plan: FusedPlan, device="cuda") -> Fused
     return FusedOps(cfg, device, plan=plan)
 
 
-def fused_call(ops: FusedOps, x: torch.Tensor, wv=None) -> torch.Tensor:
+def _check_tables(ops: FusedOps, wv: VerticalTables) -> None:
+    """Refuse a shard's table set that does not fit ``ops``'s plan, naming
+    the field."""
+    if not isinstance(wv, VerticalTables):
+        raise TypeError(f"wv= takes a shard's VerticalTables, got {type(wv).__name__}")
+    cfg = ops.cfg
+    if wv.precision != cfg.precision:
+        raise ValueError(f"wv= tables are {wv.precision.value}, the plan {cfg.precision.value}")
+    if (wv.plan.center_v is not None) != cfg.dering:
+        raise ValueError(f"wv= tables {'lack' if cfg.dering else 'carry'} the central-tap "
+                         "offsets cv")
+    if wv.tensors is None and ops.device.type == "cuda":
+        raise ValueError("wv= tables hold no device tensors: build them on the device")
+    if wv.tensors is not None and wv.tensors["wv"].device != ops.device:
+        raise ValueError(f"wv= tables on {wv.tensors['wv'].device}, weights on {ops.device}")
+    mine = ops.args if ops.args is not None else _vertical_fields(ops.plan, cfg.precision)
+    for k in VERTICAL_FIELDS:
+        if wv.fields[k] != mine[k]:
+            raise ValueError(f"wv= tables have {k}={wv.fields[k]}, the plan {k}={mine[k]}")
+
+
+def fused_call(ops: FusedOps, x: torch.Tensor, wv: Optional[VerticalTables] = None
+               ) -> torch.Tensor:
     """(NC, H, W) uint8 → (NC, OH, OW) uint8 on ``ops``'s device, through
     the fused kernel.
 
     A CUDA tensor launches the kernel (or raises); a CPU tensor runs the
-    plain version.  ``wv`` (per-shard vertical stacks) is the row-sharded
-    slice's, not yet ported."""
-    if wv is not None:
-        raise NotImplementedError(
-            "per-shard wv= stacks come with the row-sharded slice "
-            "(ROADMAP queue 1, item 9)"
-        )
+    plain version.  ``wv``, one row shard's :class:`VerticalTables`,
+    replaces the plan's vertical tables (``wv``, ``base_v``, ``starts_v``,
+    ``cv``) in the launch; the horizontal tables and every integer argument
+    stay ``ops``'s, and a table set whose ``kv``, ``tile_p``, ``win_v`` or
+    ``num_tiles`` differ raises."""
     if ops.variant != "mxu" or ops.tr_ops is not None:
         raise ValueError(
             f"this config runs {ops.kernel}"
@@ -762,9 +866,11 @@ def fused_call(ops: FusedOps, x: torch.Tensor, wv=None) -> torch.Tensor:
         )
     if x.device != ops.device:
         raise ValueError(f"input on {x.device}, weights on {ops.device}")
+    if wv is not None:
+        _check_tables(ops, wv)
     if x.device.type == "cpu":
         return fused_resample_reference(
-            x, ops.plan, cfg.precision, (oh, ow), cfg.dering, cfg.intermediate_quantize
+            x, ops.plan, cfg.precision, (oh, ow), cfg.dering, cfg.intermediate_quantize, wv
         )
     if not x.is_contiguous():
         raise ValueError("the fused kernel needs a contiguous input")
@@ -774,6 +880,8 @@ def fused_call(ops: FusedOps, x: torch.Tensor, wv=None) -> torch.Tensor:
     lib = _build.library()
     out = torch.empty((nc, oh, ow), dtype=torch.uint8, device=x.device)
     t, a = ops.tensors, ops.args
+    if wv is not None:
+        t = dict(t, **wv.tensors)
     centers = [t["cv"].data_ptr(), t["ch"].data_ptr()] if cfg.dering else [None, None]
     with torch.cuda.device(x.device):
         code = lib.lanczos_fused_resample(

@@ -23,6 +23,9 @@ on hand-built chunk plans under the fused kernel's limits against its
 plain version on the same plan; pipelined, resumed and earlier-yielded
 chunks identical bytes to a serial run's; the streamed peak of device
 memory within twice what ``depth``, the window and the chunk predict.
+Sharding: the fused kernel on every shard's own vertical tables (``wv=``)
+identical bytes to the whole-frame kernel, kernel against kernel, and the
+sharded stream and video identical to their unsharded runs.
 """
 
 import numpy as np
@@ -566,3 +569,70 @@ def test_video_and_y4m_equal_the_upscaler(cuda, tmp_path):
                 "precise", p_in.shape, scale=(2, 1), a=3))
             want_p = up.planar(torch.from_numpy(p_in[None]).to(cuda))[0].cpu().numpy()
             assert np.array_equal(p_out, want_p)
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("shape,kw,mesh_shape", [
+    ((64, 48), {}, (2, 4)),
+    ((96, 160), {"dering": True}, (1, 4)),
+    ((120, 96), {"intermediate_quantize": True}, (2, 2)),
+    ((48, 64), {"dering": True, "edge_mode": "drop", "normalize": False}, (1, 4)),
+    ((90, 120), {"align": "center"}, (1, 3)),
+])
+def test_sharded_fused_kernel_equals_the_whole_frame_kernel(cuda, shape, kw, mesh_shape,
+                                                            precision):
+    from lanczos_torch.parallel.mesh import Mesh
+
+    cfg = lanczos_torch.ResampleConfig.from_profile(
+        "precise", shape, scale=(2, 1), a=3, precision=precision, **kw)
+    d_n, r_n = mesh_shape
+    mesh = Mesh.local([cuda] * (d_n * r_n), mesh_shape)
+    img = torch.from_numpy(np.random.default_rng(21).integers(
+        0, 256, (2 * d_n,) + shape + (3,), dtype=np.uint8)).to(cuda)
+    single = lanczos_torch.Upscaler(cfg)
+    want = single(img)
+    for overlap, per_shard in ((True, 2), (False, 1)):
+        sh = lanczos_torch.ShardedUpscaler(cfg, mesh, backend="mxu", overlap=overlap)
+        kernel = sh._tables(img.device).fused.kernel
+        before = rc.launches[kernel]
+        got = sh(img)
+        torch.cuda.synchronize()
+        assert rc.launches[kernel] == before + per_shard * d_n * r_n
+        assert got.is_cuda and torch.equal(got, want)
+
+
+def test_wv_tables_refusals_on_the_card(cuda):
+    import dataclasses
+
+    from lanczos_torch.parallel.mesh import Mesh
+
+    cfg = lanczos_torch.ResampleConfig.from_profile("precise", (64, 48), scale=(2, 1), a=3)
+    sh = lanczos_torch.ShardedUpscaler(cfg, Mesh.local([cuda] * 4, (1, 4)), backend="mxu")
+    t = sh._tables(cuda)
+    x = torch.zeros((3, 16 + 2 * sh.halo, 48), dtype=torch.uint8, device=cuda)
+    assert rc.fused_call(t.fused, x, wv=t.wv[2]).shape == (3, 32, 96)
+    p = sh._plans[2]
+    with pytest.raises(ValueError, match="have win_v="):
+        rc.fused_call(t.fused, x, wv=rc.vertical_tables(
+            dataclasses.replace(p, win_v=p.win_v + 1), cfg.precision, cuda))
+    with pytest.raises(ValueError, match="device tensors"):
+        rc.fused_call(t.fused, x, wv=rc.vertical_tables(p, cfg.precision, "cpu"))
+    with pytest.raises(ValueError, match="bf16"):
+        rc.fused_call(t.fused, x, wv=rc.vertical_tables(p, lanczos_torch.Precision.BF16, cuda))
+
+
+def test_sharded_stream_and_video_on_the_card(cuda):
+    from lanczos_torch.parallel.mesh import Mesh
+
+    cfg = lanczos_torch.ResampleConfig.from_profile("precise", (400, 96), scale=(2, 1), a=3)
+    img = np.random.default_rng(22).integers(0, 256, (400, 96, 3), dtype=np.uint8)
+    base = lanczos_torch.StreamingUpscaler(cfg, chunk_rows=64)
+    sm = lanczos_torch.ShardedStreamingUpscaler(cfg, Mesh.local([cuda] * 4, (1, 4)),
+                                                chunk_rows=64)
+    assert sm.chunk_path == base.chunk_path == "fused"
+    assert np.array_equal(sm(img), base(img))
+    video = np.random.default_rng(23).integers(0, 256, (5, 48, 64, 3), dtype=np.uint8)
+    vcfg = lanczos_torch.ResampleConfig.from_profile("precise", (48, 64), scale=(2, 1), a=3)
+    vu = lanczos_torch.VideoUpscaler(vcfg, batch=3, mesh=Mesh.local([cuda] * 4, (2, 2)))
+    assert vu.batch == 4
+    assert np.array_equal(vu(video), lanczos_torch.VideoUpscaler(vcfg, batch=3)(video))

@@ -449,8 +449,13 @@ def test_fused_call_cpu_runs_plain_version_and_counts_no_launch():
     assert rc.launches == before
     with pytest.raises(ValueError, match="expected"):
         rc.fused_call(ops, x.float())
-    with pytest.raises(NotImplementedError, match="row-sharded"):
+    # wv=: a shard's vertical tables (the JAX form, dense stacks, is refused)
+    with pytest.raises(TypeError, match="VerticalTables"):
         rc.fused_call(ops, x, wv=(ops.plan.wv, ops.plan.wv))
+    same = rc.vertical_tables(ops.plan, cfg.precision, "cpu")
+    assert torch.equal(rc.fused_call(ops, x, wv=same), y)
+    with pytest.raises(ValueError, match="have kv=13, the plan kv=20"):
+        rc.fused_call(ops, x, wv=rc.vertical_tables(rc.plan_at(cfg, 16), cfg.precision, "cpu"))
 
 
 def test_hand_built_plan_is_checked():

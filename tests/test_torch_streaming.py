@@ -385,7 +385,10 @@ def test_a_hand_built_plan_with_a_shifted_offset_goes_through_fused_call():
         before = dict(rc.launches)
         y = rc.fused_call(ops, x)
         assert y.shape == (3, sm.chunk, outs[1]) and rc.launches == before
-        with pytest.raises(NotImplementedError, match="item 9"):
+        # the chunk plan's own vertical tables through wv= give the same bytes
+        tables = rc.vertical_tables(plan, cfg.precision, "cpu")
+        assert torch.equal(rc.fused_call(ops, x, wv=tables), y)
+        with pytest.raises(TypeError, match="VerticalTables"):
             rc.fused_call(ops, x, wv=(plan.wv,))
         # an interior chunk's rows are the whole-frame rows from the same window
         k = 1
@@ -408,3 +411,51 @@ def test_the_port_imports_no_jax():
     for path in files:
         assert not pattern.search(path.read_text()), path
     assert st.StreamingUpscaler is lanczos_torch.StreamingUpscaler
+
+
+@pytest.mark.parametrize("backend", ["mxu", "shift", "gather"])
+@pytest.mark.parametrize("rows,depth", [(2, 2), (4, 1), (4, 3)])
+def test_sharded_streaming_equals_streaming(backend, rows, depth):
+    """ShardedStreamingUpscaler: super-chunks of R sub-chunks, each running
+    the single-device chunk program on its window: identical chunks, in
+    order, to StreamingUpscaler's; resumable at multiples of R only."""
+    from lanczos_torch.parallel.mesh import Mesh
+
+    cfg = lanczos_torch.ResampleConfig.from_profile("precise", (200, 48), scale=(2, 1), a=3)
+    img = _img((200, 48), seed=11)
+    base = lanczos_torch.StreamingUpscaler(cfg, chunk_rows=32, chunk_backend=backend,
+                                           device="cpu")
+    want = list(base.chunks(lambda lo, hi: img[lo:hi]))
+    sm = lanczos_torch.ShardedStreamingUpscaler(
+        cfg, Mesh.local(["cpu"] * rows, (1, rows)), chunk_rows=32, chunk_backend=backend)
+    assert sm.chunk_path == base.chunk_path and sm.n_groups == -(-sm.n_chunks // rows)
+    got = list(sm.chunks(lambda lo, hi: img[lo:hi], depth=depth))
+    assert [y for y, _ in got] == [y for y, _ in want]
+    assert all(np.array_equal(a, b) for (_, a), (_, b) in zip(got, want))
+    np.testing.assert_array_equal(sm(img), base(img))
+    resumed = list(sm.chunks(lambda lo, hi: img[lo:hi], start_chunk=rows))
+    assert [y for y, _ in resumed] == [y for y, _ in want[rows:]]
+    with pytest.raises(ValueError, match="multiple of the rows-axis size"):
+        list(sm.chunks(lambda lo, hi: img[lo:hi], start_chunk=1))
+
+
+def test_sharded_streaming_against_jax_and_refusals():
+    """The gather chunk path against the JAX ShardedStreamingUpscaler
+    (≤ 1 LSB on ≤ 1%), and what the sharded stream refuses."""
+    import jax
+
+    from lanczos_tpu.models.streaming import ShardedStreamingUpscaler as TpuSharded
+    from lanczos_torch.parallel.mesh import Mesh
+
+    cfg, tcfg, _ = _cfgs("3/2", ins=(96, 64))
+    img = _img((96, 64), seed=12)
+    sm = lanczos_torch.ShardedStreamingUpscaler(cfg, Mesh.local(["cpu"] * 4, (4,), ("rows",)),
+                                                chunk_rows=24, chunk_backend="gather")
+    tsm = TpuSharded(tcfg, jax.make_mesh((4,), ("rows",)), chunk_rows=24,
+                     chunk_backend="gather")
+    assert (sm.R, sm.n_groups, sm.win) == (tsm.R, tsm.n_groups, tsm.win)
+    _within(sm(img), tsm(img), "fp32")
+    with pytest.raises(TypeError, match="Mesh"):
+        lanczos_torch.ShardedStreamingUpscaler(cfg, object())
+    with pytest.raises(ValueError, match="no axis 'rows'"):
+        lanczos_torch.ShardedStreamingUpscaler(cfg, Mesh.local(["cpu"] * 2, (2,), ("data",)))

@@ -226,7 +226,7 @@ def test_unported_backend_raises():
     _within(up(torch.from_numpy(img)).numpy(), want, "fp32")
     with pytest.raises(ValueError, match="unknown backend"):
         lanczos_torch.Upscaler(cfg, backend="mxu", device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    with pytest.raises(TypeError, match="Mesh"):  # mesh= takes a lanczos_torch Mesh
         lanczos_torch.upscale(torch.from_numpy(img), scale=(2, 1), mesh=object())
 
 

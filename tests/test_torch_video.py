@@ -88,9 +88,9 @@ def test_video_wrong_dims():
 
 
 def test_video_mesh_and_missing_cuda_raise():
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(TypeError, match="Mesh"):  # mesh= takes a lanczos_torch Mesh
         lanczos_torch.VideoUpscaler(_cfg(), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(TypeError, match="Mesh"):
         lanczos_torch.upscale_y4m("in.y4m", "out.y4m", scale=(2, 1), mesh=object(),
                                   device="cpu")
     if not torch.cuda.is_available():
@@ -178,3 +178,25 @@ def test_read_ahead_order_errors_and_abandon():
     assert next(g) == 0
     g.close()  # abandon: producer must stop and join
     assert threading.active_count() <= before
+
+
+@pytest.mark.parametrize("backend,kw", [("auto", {}), ("gather", {}), ("auto", {"dering": True}),
+                                        ("auto", {"precision": "bf16"})])
+@pytest.mark.parametrize("batch", [1, 3])
+def test_video_on_a_mesh_equals_no_mesh(backend, kw, batch):
+    """mesh=: frames data-parallel, rows sharded; the batch rounds up to the
+    data axis; every frame identical to the unsharded run's."""
+    from lanczos_torch.parallel.mesh import Mesh
+
+    cfg = _cfg(**kw)
+    video = _frames(7, seed=5)
+    mesh = Mesh.local(["cpu"] * 4, (2, 2))
+    vu = lanczos_torch.VideoUpscaler(cfg, backend=backend, depth=2, batch=batch, mesh=mesh)
+    assert vu.batch == 2 * (-(-batch // 2)) and vu.device == torch.device("cpu")
+    assert vu.model.use_mxu == (backend == "auto")
+    plain = lanczos_torch.VideoUpscaler(cfg, backend="xla" if backend == "gather" else "auto",
+                                        depth=2, batch=batch, device="cpu")
+    want = plain(video)
+    np.testing.assert_array_equal(vu(video), want)
+    outs = list(vu.frames(iter(video)))
+    assert len(outs) == 7 and all(np.array_equal(o, w) for o, w in zip(outs, want))

@@ -255,3 +255,23 @@ def test_upscale_y4m_closes_its_reader_when_the_writer_fails(tmp_path):
         lanczos_torch.upscale_y4m(str(tmp_path / "in.y4m"), str(tmp_path / "no" / "o.y4m"),
                                   scale=(2, 1), device="cpu")
     assert threading.active_count() <= before
+
+
+@pytest.mark.parametrize("cs,profile,backend", [("420jpeg", "precise", "auto"),
+                                                ("444", "precise", "gather"),
+                                                ("mono", "hls", "auto")])
+def test_upscale_y4m_on_a_mesh_equals_no_mesh(cs, profile, backend, tmp_path):
+    """mesh=: each plane batch sharded over (data × rows), the batch rounded
+    up to the data axis; the file identical to the unsharded run's."""
+    from lanczos_torch.parallel.mesh import Mesh
+
+    _write(tmp_path / "in.y4m", cs)
+    args = dict(scale=(2, 1), a=2, profile=profile, batch=3)
+    mesh = Mesh.local(["cpu"] * 4, (2, 2))
+    hdr = lanczos_torch.upscale_y4m(str(tmp_path / "in.y4m"), str(tmp_path / "mesh.y4m"),
+                                    mesh=mesh, backend=backend, **args)
+    want = lanczos_torch.upscale_y4m(str(tmp_path / "in.y4m"), str(tmp_path / "one.y4m"),
+                                     device="cpu", backend="xla" if backend == "gather"
+                                     else "auto", **args)
+    assert vars(hdr) == vars(want)
+    assert (tmp_path / "mesh.y4m").read_bytes() == (tmp_path / "one.y4m").read_bytes()
