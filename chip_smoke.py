@@ -108,11 +108,40 @@ not 0:
 23. times on one card for R = 1, 2, 4, 8: each shard's kernel (direct
    library calls), the halo copies, the sharded frame (events and wall),
    and ``ici_halo_model`` for 4 NVLink cards fed this run's frame time
-   (a model, printed as one).
+   (a model, printed as one);
+24. the CLI at full width: ``python -m lanczos_torch in.png out.png
+   --scale 2/1 --no-psnr`` in its own process on a seeded 4K PNG written
+   by the port's ``write_png``, fp32 and ``--precision bf16``, each with
+   the launches of its process (one fused kernel) and its output, decoded
+   by the port, byte-equal to ``Upscaler(cfg)`` on the card; the wall split
+   of one run in this process (decode, upload, kernel by events,
+   readback, encode); ``--bench 20`` beside phase 13's ``Upscaler`` time;
+   last, the same frame as a JPEG (the port's encoder, run in a process of
+   its own meanwhile, and its decoder), ``--info`` and a run byte-equal to
+   ``Upscaler`` on the decoded frame;
+25. ``--backend pallas`` through ``cli.main``: an 8K PNG to 480×270 (the v1
+   ``stream`` kernels) and a 480×480 PNG at ``--a 215 --scale 2/1`` (kernel
+   2), each with its launches and byte-equal to ``Upscaler(cfg,
+   backend="pallas")``;
+26. the goldens of ``tests/data/`` through the CLI (``hls`` and
+   ``c_oracle`` at the scales and supports of ``tests/test_golden.py``; its
+   bit precisions 6 and 10 through ``Upscaler``: the CLI has no such
+   flag), byte for byte; the default invocation (RMS/PSNR on) at
+   1080p→4K, its printed RMS equal to ``rms_error`` against
+   ``c_oracle_upscale`` in this process;
+27. files in, files out: 4 seeded 4K PNG frames through ``FrameLoader`` →
+   ``VideoUpscaler`` → ``FrameWriter`` (4 launches), each output byte-equal
+   to ``Upscaler``, frames/s beside the loader and the writer alone; an
+   8-frame 4:2:0 ``.y4m`` through the CLI byte-equal to ``upscale_y4m``;
+   ``examples_torch/01``–``06``, each in a process of its own, started
+   with phase 24's CLI runs (03 and 06 on 8 positions of the one card), 01
+   and 02 byte-equal to the same calls here; ``entry()`` (one launch) and
+   ``dryrun_multichip(8, ["cuda:0"] * 8)``.
 
-The run starts no worker process (the host references run on threads).
-It makes itself the subreaper of whatever it starts, and at its end, and
-on any failure, stops each process of the run still alive and names it.
+The host references run on threads.  Phases 24 and 27 start processes
+(the CLI, the JPEG encoder, the examples) and wait for each.  The run
+makes itself the subreaper of whatever it starts, and at its end, and on
+any failure, stops each process of the run still alive and names it.
 
 Limits: fp32 ≤ 1 LSB on ≤ 1% of pixels (the quantized intermediate ≤ 2
 LSB: one flipped intermediate value spreads over the taps); bf16 ≤ 3 LSB
@@ -353,9 +382,10 @@ def exact_oracle(profile: str, img: np.ndarray, out: tuple, a: int, bp: int) -> 
     return c_oracle_upscale(img, out[0], out[1], a)
 
 
-def bit_exact_and_float_paths(img: np.ndarray, x, smi: str) -> None:
+def bit_exact_and_float_paths(img: np.ndarray, x, smi: str) -> dict:
     """Phases 11–13: the bit-exact profiles, the float paths and their
-    times, on ``x`` (``img`` on the card)."""
+    times, on ``x`` (``img`` on the card); returns phase 13's ms/frame by
+    name."""
     import torch
 
     import lanczos_torch
@@ -478,11 +508,13 @@ def bit_exact_and_float_paths(img: np.ndarray, x, smi: str) -> None:
             "precise", FRAME, scale=(2, 1), a=3, **kw), backend)]
     ] + timed + [("c_oracle a=3 4K->8K", Upscaler(cfg_c), x, "c_exact"),
                  ("hls a=2 4K->8K", Upscaler(cfg_h), x, "hls")]
+    times = {}
     for name, up, xin, took in timed:
-        ms = cuda_time_ms(up, xin)
+        ms = times[name] = cuda_time_ms(up, xin)
         print(f"  {name} ({took}): {ms:.4f} ms/frame", flush=True)
         torch.cuda.empty_cache()
     del timed
+    return times
 
 
 def wall_ms(fn, iters: int = 5, warmup: int = 2) -> float:
@@ -1146,6 +1178,376 @@ def sharding(img: np.ndarray, x, smi: str, kernels: list) -> None:
           f"whole-frame kernel time {whole_ms:.4f} ms: {json.dumps(model)}", flush=True)
 
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
+# ``python -m lanczos_torch`` run as ``-m`` runs it (runpy), which then prints
+# the kernel launches of its process on exit: the counts of a CLI subprocess
+COUNTED_CLI = (
+    "import atexit, json, runpy, sys\n"
+    "def launches():\n"
+    "    from lanczos_torch.ops import resample_cuda as rc, resample_phase_cuda as rp\n"
+    "    from lanczos_torch.ops import resample_shift_cuda as rs\n"
+    "    n = {k: v for m in (rc, rs, rp) for k, v in m.launches.items() if v}\n"
+    "    print('LAUNCHES ' + json.dumps(n), flush=True)\n"
+    "atexit.register(launches)\n"
+    "sys.argv[0] = 'lanczos_torch'\n"
+    "runpy.run_module('lanczos_torch', run_name='__main__', alter_sys=True)\n"
+)
+# 4K PNG frames through FrameLoader -> VideoUpscaler -> FrameWriter: each 8K
+# PNG costs the host's zlib seconds (PERF.md section 5), so one wave of the
+# writer's 4 encode threads, not two
+FILES = 4
+GOLDENS = [  # tests/test_golden.py:28-56 that the CLI reaches (it has no bit-precision flag)
+    ("c_oracle", "2/1", 2, "golden_c_oracle_2x_a2.png"),
+    ("c_oracle", "2/1", 3, "golden_c_oracle_2x_a3.png"),
+    ("c_oracle", "3/2", 2, "golden_c_oracle_3over2_a2.png"),
+    ("hls", "2/1", 2, "golden_hls_2x_a2.png"),
+    ("hls", "2/1", 3, "golden_hls_2x_a3.png"),
+    ("hls", "3/2", 2, "golden_hls_3over2_a2.png"),
+]
+
+
+def start(cmd: list) -> subprocess.Popen:
+    """A process of the checkout's Python on ``cmd``, from the checkout's
+    root, with the checkout importable."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    return subprocess.Popen([sys.executable] + [str(c) for c in cmd], cwd=ROOT, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def finish(proc: subprocess.Popen, name: str, timeout: float = 300) -> str:
+    """``proc``'s standard output; raises, with the end of its errors, if it
+    failed."""
+    out, err = proc.communicate(timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"{name} exited {proc.returncode}:\n{err[-3000:]}")
+    return out
+
+
+def finish_timed(proc: subprocess.Popen, name: str, t0: float) -> tuple[str, float]:
+    """``finish`` and the seconds from ``t0`` to the process's end."""
+    out = finish(proc, name)
+    return out, time.perf_counter() - t0
+
+
+def launches_of(out: str) -> dict:
+    return json.loads([ln for ln in out.splitlines() if ln.startswith("LAUNCHES ")][-1][9:])
+
+
+def cli_in_process(argv: list) -> tuple[str, dict]:
+    """``lanczos_torch.cli.main(argv)`` in this process: its standard output
+    and the kernels it launched."""
+    import contextlib
+    import io
+
+    import torch
+
+    from lanczos_torch import cli
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    reset_counts()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main([str(a) for a in argv])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if rc != 0:
+        raise AssertionError(f"cli.main({argv}) returned {rc}")
+    return buf.getvalue(), counts
+
+
+def equal_bytes(name: str, got: np.ndarray, want: np.ndarray) -> None:
+    if got.shape != want.shape or got.dtype != want.dtype or not np.array_equal(got, want):
+        n = int((got != want).sum()) if got.shape == want.shape else -1
+        raise AssertionError(f"{name}: {got.shape} {got.dtype} vs {want.shape} {want.dtype}, "
+                             f"{n} values differ")
+    print(f"  {name}: identical bytes {got.shape}", flush=True)
+
+
+def expect_launches(name: str, counts: dict, want: dict) -> None:
+    if counts != want:
+        raise AssertionError(f"{name}: launches {counts}, expected {want}")
+    print(f"  {name}: launches {counts}", flush=True)
+
+
+def cli_and_files(img: np.ndarray, x, smi: str, upscaler_ms: float) -> None:
+    """Phases 24–27: the CLI, the image codecs, the loader and writer, the
+    examples and the entry points, on ``img`` (``x`` on the card)."""
+    import torch
+
+    import lanczos_torch
+    from lanczos_torch.entry import dryrun_multichip, entry
+    from lanczos_torch.io import (encode_gif, read_image, read_png, write_image, write_png,
+                                  write_y4m)
+    from lanczos_torch.io._native import native_paths
+    from lanczos_torch.io.loader import FrameLoader, FrameWriter
+    from lanczos_torch.models.upscaler import Upscaler
+    from lanczos_torch.ref.oracle import c_oracle_upscale
+    from lanczos_torch.utils.metrics import rms_error
+
+    def cfg_of(shape, a=3, **kw):
+        return lanczos_torch.ResampleConfig.from_profile("precise", shape, a=a, **kw)
+
+    def on_card(model, im):
+        return model(torch.from_numpy(im).cuda()).cpu().numpy()
+
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(4) as host:
+        path = lambda name: os.path.join(tmp, name)  # noqa: E731
+
+        # ---- 24. the CLI at full width
+        print(f"== 24. python -m lanczos_torch at 4K->8K (PNG in, PNG out) [{smi}]", flush=True)
+        t24 = time.perf_counter()
+        print(f"  native codec loops: {native_paths()} (False: the NumPy path ran)", flush=True)
+        t0 = time.perf_counter()
+        write_png(path("4k.png"), img)
+        print(f"  write_png of the 4K frame (level 6): {time.perf_counter() - t0:.3f} s",
+              flush=True)
+        cfgs = {p: cfg_of(FRAME, scale=(2, 1), precision=p) for p in ("fp32", "bf16")}
+        models = {p: Upscaler(c) for p, c in cfgs.items()}
+        want = {p: m(x).cpu().numpy() for p, m in models.items()}
+        # where one run's wall time goes, step by step as cli.main takes them
+        # (the model warm: its plan and the kernels' library exist)
+        split = {}
+        t0 = time.perf_counter()
+        im = read_image(path("4k.png"))
+        split["decode"] = time.perf_counter() - t0
+        equal_bytes("read_image(write_png(frame))", im, img)
+        t0 = time.perf_counter()
+        xd = torch.from_numpy(im).cuda()
+        torch.cuda.synchronize()
+        split["upload"] = time.perf_counter() - t0
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        y = models["fp32"](xd)
+        ev[1].record()
+        torch.cuda.synchronize()
+        split["kernel (host)"] = time.perf_counter() - t0
+        split["kernel (events)"] = ev[0].elapsed_time(ev[1]) * 1e-3
+        t0 = time.perf_counter()
+        out = y.cpu().numpy()
+        split["readback"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        write_image(path("split.png"), out)
+        split["encode"] = time.perf_counter() - t0
+        equal_bytes("in-process run vs Upscaler", out, want["fp32"])
+        total = sum(v for k, v in split.items() if k != "kernel (events)")
+        print("  wall split of one fp32 run (s): " + ", ".join(
+            f"{k} {v:.6f}" for k, v in split.items()) + f"; total {total:.3f} s, the kernel "
+            f"{split['kernel (events)'] / total:.5f} of it [{smi}]", flush=True)
+        del xd, y
+
+        t0 = time.perf_counter()
+        bench = finish(start(["-m", "lanczos_torch", path("4k.png"), path("bench.bmp"),
+                              "--scale", "2/1", "--no-psnr", "--bench", "20"]), "--bench 20")
+        line = [ln for ln in bench.splitlines() if ln.startswith("bench:")]
+        bench_ms = float(line[0].split()[1])
+        print(f"  python -m lanczos_torch ... --bench 20 (alone, {time.perf_counter() - t0:.1f} s "
+              f"wall): {line[0]!r}; phase 13's Upscaler fp32 4K->8K {upscaler_ms:.4f} ms/frame; "
+              f"ratio {bench_ms / upscaler_ms:.3f} [{smi}]", flush=True)
+
+        # the inputs of the later phases, on host threads; meanwhile, in
+        # processes of their own, the JPEG encoder (Python a block), the six
+        # examples and the two CLI runs below
+        rng = np.random.default_rng(24)
+        img8k = rng.integers(0, 256, (2 * FRAME[0], 2 * FRAME[1], 3), dtype=np.uint8)
+        img480 = rng.integers(0, 256, (480, 480, 3), dtype=np.uint8)
+        img1080 = rng.integers(0, 256, (1080, 1920, 3), dtype=np.uint8)
+        frames = [np.random.default_rng(270 + k).integers(0, 256, FRAME + (3,), dtype=np.uint8)
+                  for k in range(FILES)]
+        paths = [path(f"f{k}.png") for k in range(FILES)]
+        planes = [(rng.integers(0, 256, FRAME, dtype=np.uint8),)
+                  + tuple(rng.integers(0, 256, (FRAME[0] // 2, FRAME[1] // 2), dtype=np.uint8)
+                          for _ in range(2)) for _ in range(8)]
+        write_y4m(path("in.y4m"), planes, fps=(30, 1), colorspace="420jpeg")
+        gif = rng.integers(0, 4, (4, 270, 480, 3), dtype=np.uint8) * 80
+        with open(path("in.gif"), "wb") as f:
+            f.write(encode_gif(gif, delays_cs=[4, 5, 6, 7]))
+        write_png(path("1080.png"), img1080)
+        jpeg_enc = start(["-c", "import sys, time; from lanczos_torch.io import read_image, "
+                          "write_image; im = read_image(sys.argv[1]); t = time.perf_counter(); "
+                          "write_image(sys.argv[2], im); print(time.perf_counter() - t)",
+                          path("4k.png"), path("4k.jpg")])
+        examples = {
+            "01": ["01_image_upscale.py", path("1080.png"), path("e01.png")],
+            "02": ["02_video_y4m.py", path("in.y4m"), path("e02.y4m")],
+            "03": ["03_sharded_mesh.py", "--n", "8"],
+            "04": ["04_streaming_tall_frame.py"],
+            "05": ["05_gif_animation.py", path("in.gif"), path("e05")],
+            "06": ["06_sharded_video_stream.py", "--n", "8"],
+        }
+        t_ex = time.perf_counter()
+        waits = ThreadPoolExecutor(len(examples))
+        ex_runs = {k: waits.submit(finish_timed,
+                                   start([os.path.join(ROOT, "examples_torch", v[0])] + v[1:]),
+                                   "examples_torch/" + v[0], t_ex)
+                   for k, v in examples.items()}
+        prep = [host.submit(write_png, path("8k.png"), img8k),
+                host.submit(write_png, path("480.png"), img480)]
+        prep += [host.submit(write_png, p, f) for p, f in zip(paths, frames)]
+        oracle1080 = host.submit(c_oracle_upscale, img1080, 2160, 3840, 3)
+
+        t0 = time.perf_counter()
+        procs = {p: start(["-c", COUNTED_CLI, path("4k.png"), path(f"cli_{p}.png"), "--scale",
+                           "2/1", "--no-psnr"] + (["--precision", "bf16"] if p == "bf16" else []))
+                 for p in ("fp32", "bf16")}
+        for p, proc in procs.items():
+            outp = finish(proc, f"python -m lanczos_torch ({p})")
+            print("  " + outp.splitlines()[0], flush=True)
+            expect_launches(f"CLI {p}", launches_of(outp), {f"fused_resample_{p}": 1})
+            equal_bytes(f"CLI {p} output vs Upscaler(cfg)(img) on the card",
+                        read_png(path(f"cli_{p}.png")), want[p])
+        print(f"  the two CLI runs, in parallel: {time.perf_counter() - t0:.1f} s wall", flush=True)
+        del want
+        print(f"  phase 24 (PNG): {time.perf_counter() - t24:.1f} s", flush=True)
+
+        # ---- 25. --backend pallas through the CLI
+        print("== 25. --backend pallas through the CLI: v1 (8K->480x270) and kernel 2", flush=True)
+        t25 = time.perf_counter()
+        for fut in prep[:2]:
+            fut.result()
+        for name, src, im, args, kw, kernels in (
+            ("8K PNG --out-size 480x270", "8k.png", img8k, ["--out-size", "480x270"],
+             dict(out_shape=(270, 480)), ("phase_stream_v_fp32", "phase_stream_h_fp32")),
+            ("480x480 PNG --a 215 --scale 2/1", "480.png", img480,
+             ["--a", "215", "--scale", "2/1"], dict(a=215, scale=(2, 1)), ("shift_resample",)),
+        ):
+            outp, counts = cli_in_process([path(src), path("p25.png"), "--backend", "pallas",
+                                           "--no-psnr"] + args)
+            print("  " + outp.strip(), flush=True)
+            expect_launches(name, counts, {k: 1 for k in kernels})
+            equal_bytes(f"CLI {name} vs Upscaler(cfg, backend='pallas')",
+                        read_png(path("p25.png")),
+                        on_card(Upscaler(cfg_of(im.shape[:2], **kw), backend="pallas"), im))
+        print(f"  phase 25: {time.perf_counter() - t25:.1f} s", flush=True)
+
+        # ---- 26. bit-exact goldens and the default invocation
+        print("== 26. the goldens through the CLI on the card; the default invocation "
+              "(RMS/PSNR on) at 1080p->4K", flush=True)
+        t26 = time.perf_counter()
+        data = os.path.join(ROOT, "tests", "data")
+        small = read_png(os.path.join(data, "input_48x40.png"))
+        for profile, scale, a, golden in GOLDENS:
+            outp, counts = cli_in_process([os.path.join(data, "input_48x40.png"), path("g.png"),
+                                           "--profile", profile, "--scale", scale, "--a", a])
+            rms = [ln for ln in outp.splitlines() if ln.startswith("RMS")]
+            with open(path("g.png"), "rb") as f, open(os.path.join(data, golden), "rb") as g:
+                if f.read() != g.read():
+                    raise AssertionError(f"CLI --profile {profile} --scale {scale} --a {a}: "
+                                         f"the file differs from {golden}")
+            print(f"  --profile {profile} --scale {scale} --a {a}: the bytes of {golden}; "
+                  f"launches {counts}; {rms[0]}", flush=True)
+        for bp, golden in ((6, "golden_hls_2x_a2_p6.png"), (10, "golden_hls_2x_a2_p10.png")):
+            cfg = lanczos_torch.ResampleConfig.from_profile("hls", (48, 40), scale=(2, 1), a=2,
+                                                            bit_precision=bp)
+            equal_bytes(f"Upscaler hls bit_precision={bp} (no CLI flag) vs {golden}",
+                        on_card(Upscaler(cfg), small), read_png(os.path.join(data, golden)))
+        outp, counts = cli_in_process([path("1080.png"), path("o1080.png")])
+        print("  " + outp.replace("\n", "\n  ").rstrip(), flush=True)
+        expect_launches("default invocation 1080p->4K", counts, {"fused_resample_fp32": 1})
+        rms = [ln for ln in outp.splitlines() if ln.startswith("RMS error vs fp64 oracle:")]
+        mine = f"{rms_error(read_png(path('o1080.png')), oracle1080.result()):.4f}"
+        if not rms or rms[0].split()[5] != mine:
+            raise AssertionError(f"the CLI printed {rms}, rms_error in this process gives {mine}")
+        print(f"  rms_error vs c_oracle_upscale in this process: {mine} (the same)", flush=True)
+        print(f"  phase 26: {time.perf_counter() - t26:.1f} s", flush=True)
+
+        # ---- the processes started in phase 24: the examples, the JPEG encoder
+        print("== 27 (examples). examples_torch/01-06, each in a process of its own, started "
+              "with phase 24's CLI runs (03 and 06 on 8 positions of the one card)", flush=True)
+        for k, run in ex_runs.items():
+            out, secs = run.result()
+            print(f"  examples_torch/{examples[k][0]}: {secs:.1f} s wall; "
+                  f"{out.strip().splitlines()[-1]}", flush=True)
+        waits.shutdown()
+        equal_bytes("example 01 vs Upscaler", read_png(path("e01.png")),
+                    on_card(Upscaler(cfg_of((1080, 1920), scale=(2, 1))), img1080))
+        lanczos_torch.upscale_y4m(path("in.y4m"), path("ref.y4m"), scale=(2, 1), a=3, batch=8)
+        with open(path("e02.y4m"), "rb") as f, open(path("ref.y4m"), "rb") as g:
+            if f.read() != g.read():
+                raise AssertionError("example 02 differs from upscale_y4m")
+        print("  example 02: identical bytes to upscale_y4m", flush=True)
+
+        print("== 24 (JPEG). the same 4K frame as a JPEG through the CLI", flush=True)
+        t_enc = float(finish(jpeg_enc, "write_image(4k.jpg)", timeout=900))
+        print(f"  write_image(.jpg) of the 4K frame (quality 90, in a process of its own): "
+              f"{t_enc:.3f} s", flush=True)
+        outp, counts = cli_in_process([path("4k.jpg"), "--info"])
+        print("  --info: " + outp.strip(), flush=True)
+        t0 = time.perf_counter()
+        jpg = read_image(path("4k.jpg"))
+        t_dec = time.perf_counter() - t0
+        outp, counts = cli_in_process([path("4k.jpg"), path("jpg_out.bmp"), "--no-psnr"])
+        expect_launches("CLI on the JPEG", counts, {"fused_resample_fp32": 1})
+        equal_bytes("CLI on the JPEG (BMP out) vs Upscaler on its decoded frame",
+                    read_image(path("jpg_out.bmp")), on_card(models["fp32"], jpg))
+        print(f"  JPEG decode of the 4K frame: {t_dec:.3f} s; its PSNR against the frame "
+              f"{20 * np.log10(255 / max(rms_error(jpg, img), 1e-12)):.2f} dB", flush=True)
+        del jpg
+
+        # ---- 27. files in, files out
+        print(f"== 27. files in, files out: FrameLoader -> VideoUpscaler -> FrameWriter on "
+              f"{FILES} 4K PNG frames, the .y4m branch, the entry points [{smi}]", flush=True)
+        t27 = time.perf_counter()
+        for fut in prep[2:]:
+            fut.result()
+        cfg4k = cfgs["fp32"]
+        vu = lanczos_torch.VideoUpscaler(cfg4k, batch=1)
+        outs = [path(f"up{k}.png") for k in range(FILES)]
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with FrameWriter(encode_workers=4) as w:
+            for k, up in enumerate(vu.frames(im for _, im in FrameLoader(paths))):
+                w.write(outs[k], up)
+        t_pipe = time.perf_counter() - t0
+        expect_launches("FrameLoader -> VideoUpscaler -> FrameWriter", read_counts(),
+                        {"fused_resample_fp32": FILES})
+        t0 = time.perf_counter()
+        n = sum(1 for _ in FrameLoader(paths))
+        t_load = time.perf_counter() - t0
+        ups = [on_card(models["fp32"], f) for f in frames]
+        for k in range(FILES):
+            equal_bytes(f"frame {k} written vs Upscaler", read_png(outs[k]), ups[k])
+        t0 = time.perf_counter()
+        with FrameWriter(encode_workers=4) as w:
+            for k, up in enumerate(ups):
+                w.write(path(f"w{k}.png"), up)
+        t_write = time.perf_counter() - t0
+        print(f"  {FILES} frames: pipeline {t_pipe:.3f} s ({FILES / t_pipe:.3f} frames/s); the "
+              f"loader's decode alone {t_load:.3f} s ({n / t_load:.2f} frames/s, 4 threads); the "
+              f"writer's encode alone {t_write:.3f} s ({FILES / t_write:.3f} frames/s, 4 threads, "
+              f"level 6)", flush=True)
+        del ups
+
+        t0 = time.perf_counter()
+        outp, counts = cli_in_process([path("in.y4m"), path("cli.y4m")])
+        t_y4m = time.perf_counter() - t0
+        with open(path("cli.y4m"), "rb") as f, open(path("ref.y4m"), "rb") as g:
+            if f.read() != g.read():
+                raise AssertionError("the CLI's .y4m branch differs from upscale_y4m")
+        print(f"  {outp.strip()}: identical bytes to upscale_y4m; launches {counts}; "
+              f"{8 / t_y4m:.2f} frames/s through the CLI", flush=True)
+
+        model, args = entry()
+        torch.cuda.synchronize()
+        reset_counts()
+        y = model(*args)
+        torch.cuda.synchronize()
+        expect_launches("entry()", read_counts(), {"fused_resample_fp32": 1})
+        if tuple(y.shape) != (4320, 7680, 3) or y.dtype != torch.uint8 or bool(y.any()):
+            raise AssertionError(f"entry(): {tuple(y.shape)} {y.dtype}, nonzero {bool(y.any())}")
+        del model, args, y
+        t0 = time.perf_counter()
+        reset_counts()
+        dryrun_multichip(8, ["cuda:0"] * 8)
+        print(f"  dryrun_multichip(8) on Mesh.local([cuda:0] * 8): "
+              f"{time.perf_counter() - t0:.1f} s, launches {read_counts()}", flush=True)
+        print(f"  phase 27: {time.perf_counter() - t27:.1f} s", flush=True)
+
+        torch.cuda.empty_cache()
+
+
 PR_SET_CHILD_SUBREAPER = 36  # <linux/prctl.h>
 
 
@@ -1776,9 +2178,10 @@ def main() -> None:
             k["earlier_ms"] = None  # its earlier design is no longer built: PERF.md has its time
     del himg
 
-    bit_exact_and_float_paths(img, x, smi)
+    upscaler_ms = bit_exact_and_float_paths(img, x, smi)
     streaming_and_video(img, x, smi, refs64, kernels)
     sharding(img, x, smi, kernels)
+    cli_and_files(img, x, smi, upscaler_ms["fused kernel fp32 (auto) 4K->8K"])
 
     left = stop_leftovers()
     print(f"  processes the run left running: {len(left)} (stopped)", flush=True)

@@ -17,8 +17,9 @@ frame batches in flight between the host and one card.
 split rows and frames over a (data × rows) :class:`Mesh` of devices: one
 process's (``Mesh.local``; on one card the shards run one after another) or
 the ranks of a ``torch.distributed`` group (``Mesh.distributed``, after
-``parallel.multihost.initialize``).  The CLI and the image codecs are later
-slices.
+``parallel.multihost.initialize``).  ``python -m lanczos_torch in.png
+out.png --scale 2/1`` is the command line (``lanczos_torch.cli``), and
+``lanczos_torch.io`` reads and writes the image files and ``.y4m`` video.
 
     - ``lanczos_torch.core``:   configuration, filter kernels, weight tables
       (copies of ``lanczos_tpu.core``'s framework-neutral modules)
@@ -30,9 +31,12 @@ slices.
       streaming and video
     - ``lanczos_torch.parallel``: the mesh and its halo exchange, row and
       batch sharding, multi-process set-up and the scaling models
-    - ``lanczos_torch.io``:     the Y4M container (a copy of
-      ``lanczos_tpu.io.y4m``)
-    - ``lanczos_torch.utils``:  metrics and CUDA-event timing
+    - ``lanczos_torch.io``:     the image codecs, the frame loader and
+      writer and the Y4M container (copies of ``lanczos_tpu.io``)
+    - ``lanczos_torch.utils``:  metrics, CUDA-event timing and the host
+      C++ build
+    - ``lanczos_torch.cli``, ``lanczos_torch.entry``: the command line and
+      the entry points
 """
 
 __version__ = "0.1.0"

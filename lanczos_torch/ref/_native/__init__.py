@@ -2,25 +2,21 @@
 of ``lanczos_tpu/ref/_native/oracle.cpp``).
 
 Built at first use with ``g++ -O2 -ffp-contract=off`` into
-``lanczos_torch/_build/``, named by a hash of the source, and renamed into
-place so that concurrent builds never load a half-written library.  Where
-g++ is missing or fails, :func:`native_lib` returns None and
+``lanczos_torch/_build/`` by :func:`lanczos_torch.utils.native.build_library`.
+Where g++ is missing or fails, :func:`native_lib` returns None and
 ``c_oracle_upscale`` runs its NumPy loop, which gives the same bytes.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import tempfile
 import threading
 from pathlib import Path
 from typing import Optional
 
+from lanczos_torch.utils.native import build_library
+
 _SRC = Path(__file__).resolve().parent / "oracle.cpp"
-_BUILD = Path(__file__).resolve().parent.parent.parent / "_build"
 _FLAGS = ["-O2", "-ffp-contract=off", "-shared", "-fPIC"]
 
 _lock = threading.Lock()
@@ -42,11 +38,6 @@ class _Lib:
         self.oracle_height_pass = cdll.oracle_height_pass
 
 
-def _library_path() -> Path:
-    h = hashlib.sha256(" ".join(_FLAGS).encode() + _SRC.read_bytes())
-    return _BUILD / f"liboracle_{h.hexdigest()[:16]}.so"
-
-
 def native_lib() -> Optional[_Lib]:
     """The loaded C loop, built first if needed; None where it cannot be."""
     global _lib, _tried
@@ -56,19 +47,9 @@ def native_lib() -> Optional[_Lib]:
         if _lib is not None or _tried:
             return _lib
         _tried = True
-        so = _library_path()
-        if not so.exists():
-            try:
-                _BUILD.mkdir(parents=True, exist_ok=True)
-                with tempfile.TemporaryDirectory(dir=_BUILD) as tmp:
-                    out = os.path.join(tmp, so.name)
-                    subprocess.run(
-                        ["g++", *_FLAGS, "-o", out, str(_SRC)],
-                        check=True, capture_output=True, timeout=120,
-                    )
-                    os.replace(out, so)
-            except (OSError, subprocess.SubprocessError):
-                return None
+        so = build_library(_SRC, _FLAGS, "oracle")
+        if so is None:
+            return None
         try:
             _lib = _Lib(ctypes.CDLL(str(so)))
         except OSError:

@@ -636,3 +636,32 @@ def test_sharded_stream_and_video_on_the_card(cuda):
     vu = lanczos_torch.VideoUpscaler(vcfg, batch=3, mesh=Mesh.local([cuda] * 4, (2, 2)))
     assert vu.batch == 4
     assert np.array_equal(vu(video), lanczos_torch.VideoUpscaler(vcfg, batch=3)(video))
+
+
+@pytest.mark.parametrize("args,shape,kw,counter", [
+    ([], (40, 56), dict(scale=(2, 1)), (rc, "fused_resample_fp32")),
+    (["--precision", "bf16"], (40, 56), dict(scale=(2, 1), precision="bf16"),
+     (rc, "fused_resample_bf16")),
+    (["--backend", "pallas", "--out-size", "50x40"], (640, 800), dict(out_shape=(40, 50)),
+     (rp, "phase_stream_v_fp32")),
+    (["--backend", "pallas", "--a", "215", "--scale", "2/1"], (480, 480), dict(scale=(2, 1), a=215),
+     (rs, "shift_resample")),
+])
+def test_cli_on_the_card_equals_the_upscaler(cuda, tmp_path, args, shape, kw, counter):
+    """``cli.main`` with its default ``--device cuda``: one launch of the
+    kernel its path routes to, and the file's bytes those of ``Upscaler``
+    on the card."""
+    from lanczos_torch import cli
+    from lanczos_torch.io import read_png, write_png
+
+    img = np.random.default_rng(21).integers(0, 256, shape + (3,), dtype=np.uint8)
+    write_png(tmp_path / "in.png", img)
+    mod, name = counter
+    before = mod.launches[name]
+    argv = [str(tmp_path / "in.png"), str(tmp_path / "out.png"), "--no-psnr"] + args
+    assert cli.main(argv) == 0
+    assert mod.launches[name] == before + 1
+    backend = "pallas" if "pallas" in args else "auto"
+    cfg = lanczos_torch.ResampleConfig.from_profile("precise", shape, a=kw.pop("a", 3), **kw)
+    want = lanczos_torch.Upscaler(cfg, backend=backend)(torch.from_numpy(img).to(cuda))
+    assert np.array_equal(read_png(tmp_path / "out.png"), want.cpu().numpy())
