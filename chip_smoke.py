@@ -55,7 +55,8 @@ not 0:
    semantics, and timed beside it (``full`` / ``f32full`` are the
    production kernel's earlier, dense design: its ``earlier_ms``);
 11. the bit-exact profiles on the card: ``hls`` and ``c_oracle`` at small
-   seeds drawn as ``hwcert.py`` draws its exact seeds (plus ``hls`` at
+   seeds drawn as ``hwcert.py`` draws its exact seeds (the port's harness
+   ``lanczos_torch.tools.hwcert.draw_exact``) (plus ``hls`` at
    P = 6 and 10), each byte-equal to its ``lanczos_torch.ref`` oracle (run
    on host threads meanwhile); at 4K→8K, ``c_oracle`` a=3 byte-equal
    to ``c_oracle_upscale`` and ``hls`` a=2 byte-equal to the same module's
@@ -136,7 +137,15 @@ not 0:
    ``examples_torch/01``–``06``, each in a process of its own, started
    with phase 24's CLI runs (03 and 06 on 8 positions of the one card), 01
    and 02 byte-equal to the same calls here; ``entry()`` (one launch) and
-   ``dryrun_multichip(8, ["cuda:0"] * 8)``.
+   ``dryrun_multichip(8, ["cuda:0"] * 8)``;
+28. certification: ``python -m lanczos_torch.tools.hwcert``'s ``main`` in
+   this process with ``hwcert.py``'s defaults but no bit-exact seeds (phase
+   11 holds them): 40 drawn configs through ``backend="pallas"`` (each has a
+   fused plan) and, where kernel 2 or v1 takes it, through that kernel too,
+   against float64 gathers, 6 anisotropic, 6 uint16 and a ``.y4m`` in each
+   of 420p10, 422p12 and mono; its summary line, the launches (each of the
+   three kernel families at least once) and the wall time, and every failed
+   row; 55 rows, none failed.
 
 The host references run on threads.  Phases 24 and 27 start processes
 (the CLI, the JPEG encoder, the examples) and wait for each.  The run
@@ -158,7 +167,8 @@ resample they replace together).  Each kernel's
 ``bound_ms`` is the least time the card could take for its call: the
 larger of its compulsory bytes (input read once, output written once)
 over 3.35 TB/s and its needed multiply-adds (2·support·max(1, D/N) a
-value and pass) over the 67 TFLOP/s SIMT fp32 peak; ``library_ms`` is
+value and pass) over the 67 TFLOP/s SIMT fp32 peak
+(``lanczos_torch.utils.profiling.kernel_bound``); ``library_ms`` is
 null for all: no single PyTorch call computes a Lanczos resample
 (``F.interpolate`` has no Lanczos mode).
 """
@@ -177,15 +187,17 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+# the H100's peak rates (NVIDIA's data sheet, SXM at 700 W: SIMT fp32 and
+# device memory), the kernels' bound and the float64 reference
+from lanczos_torch.ref.gather import gather_f64
+from lanczos_torch.utils.profiling import FP32_PEAK_TFLOPS, HBM_TBPS, bound_of, kernel_bound
+
 LIMITS = {"fp32": (1, 0.01), "bf16": (3, 0.50), "quant": (2, 0.01), "exact": (0, 0.0),
           "float": (1e-3, 1.0), "1 LSB": (1, 1.0)}
 TALL = (17280, 3840)  # eight 4K frames' rows: the frame that makes streaming real
 FRAME = (2160, 3840)  # the main path's input, 4K; output 2x each way
 # a rational scale (563/540 by 667/640) only the block path takes
 BLOCK_CASE = ((1080, 1920), (1126, 2001))
-# H100 SXM, NVIDIA's data sheet at 700 W: SIMT fp32 and device memory
-FP32_PEAK_TFLOPS = 67.0
-HBM_TBPS = 3.35
 T0 = time.perf_counter()
 
 
@@ -209,51 +221,6 @@ def compare(name: str, got, want, precision: str) -> tuple[int, float]:
     if not ok:
         raise AssertionError(f"{name} outside the {precision} limits")
     return mx, frac
-
-
-def gather_f64(img: np.ndarray, cfg) -> np.ndarray:
-    """Float64 separable gather from the port's banded_weights: the
-    (H, W, C) reference of a precise config, in its pass order, with its
-    dering clamp (each pass to its two central taps) and its quantized
-    intermediate; trunc-clipped to the input's integer type (uint8 or
-    uint16), float64 for float input."""
-    from lanczos_torch.core.weights import banded_weights
-
-    (ih, iw), (oh, ow) = cfg.in_shape, cfg.out_shape
-    kw = dict(a=cfg.a, filter_name=cfg.filter, edge_mode=cfg.edge_mode,
-              normalize=cfg.normalize, align=cfg.align.value)
-    op_v, op_h = banded_weights(ih, oh, **kw), banded_weights(iw, ow, **kw)
-
-    def apply(x, op, axis):
-        shape = [1, 1, 1]
-        shape[axis] = op.out_size
-        acc = None
-        for j in range(op.taps):
-            term = op.weights[:, j].reshape(shape) * np.take(x, op.idx[:, j], axis)
-            acc = term if acc is None else np.add(acc, term, out=acc)
-        if cfg.dering:
-            c0 = np.take(x, op.idx[:, op.a - 1], axis)
-            c1 = np.take(x, op.idx[:, op.a], axis)
-            acc = np.clip(acc, np.minimum(c0, c1), np.maximum(c0, c1))
-        return acc
-
-    first, second = ((op_v, 0), (op_h, 1))
-    if cfg.order.value == "width_first":
-        first, second = second, first
-    mid = apply(img.astype(np.float64), *first)
-    if cfg.intermediate_quantize:
-        # Exactly integral intermediates (at 2/1 the even rows copy the
-        # input) come out of float64 a few ulps to either side, because
-        # sin(pi*k) leaves the zero taps at ~1e-17; truncation would drop
-        # those below by a whole level.  Snap them to the integer first.
-        near = np.round(mid)
-        mid = np.where(np.abs(mid - near) < 1e-9, near, mid)
-        mid = np.trunc(np.clip(mid, 0.0, 255.0))
-    out = apply(mid, *second)
-    if img.dtype.kind == "f":
-        return out
-    top = float(np.iinfo(img.dtype).max)
-    return np.trunc(np.clip(out, 0.0, top)).astype(img.dtype)
 
 
 def plain_version(x, ops):
@@ -301,26 +268,6 @@ def read_counts() -> dict:
     return {k: n for counts in _counters() for k, n in counts.items() if n}
 
 
-def bound(cfg, nc: int) -> dict:
-    """The least time the card could take for ``cfg`` on ``nc`` uint8
-    planes, height first: ``bytes`` (input once, output once), ``flops``
-    (two per needed multiply-add: 2·support·max(1, D/N) taps a value, the
-    vertical pass over OH × W values and the horizontal over OH × OW),
-    ``bound_ms`` the larger of their times and ``bound_by`` which."""
-    (ih, iw), (oh, ow) = cfg.in_shape, cfg.out_shape
-
-    def taps(scale):
-        n, d = scale
-        return 2 * cfg.a * max(1.0, d / n)
-
-    nbytes = nc * (ih * iw + oh * ow)
-    flops = 2.0 * nc * (oh * iw * taps(cfg.scale_h) + oh * ow * taps(cfg.scale_w))
-    t_bytes = nbytes / (HBM_TBPS * 1e12) * 1e3
-    t_flops = flops / (FP32_PEAK_TFLOPS * 1e12) * 1e3
-    return dict(bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_flops),
-                bound_by="bytes" if t_bytes >= t_flops else "operations")
-
-
 def entry(name: str, source: str, replaces: str, launches: int, err, ms: float,
           plain_ms: float, bnd: dict) -> dict:
     """One kernel's record in the ``kernels`` line."""
@@ -353,33 +300,19 @@ def _plan_with(cfg, tile: int, cb: int):
 
 def exact_seeds() -> list:
     """``(name, profile, shape, scale, a, bit_precision, image)`` of the
-    bit-exact seeds, drawn as ``hwcert.py``'s ``run_seed_exact`` draws
-    them (odd seeds ``hls``, even ``c_oracle``), plus two ``hls`` seeds at
-    P = 6 and P = 10."""
+    bit-exact seeds, drawn by the certification harness's ``draw_exact``
+    (odd seeds ``hls``, even ``c_oracle``), plus two ``hls`` seeds at P = 6
+    and P = 10."""
+    from lanczos_torch.tools.hwcert import draw_exact
+
     out = []
     for seed, bp in [(s, 8) for s in range(10)] + [(11, 6), (13, 10)]:
-        rng = np.random.default_rng(10_000 + seed)
-        profile = "hls" if seed % 2 else "c_oracle"
-        n, d = [(2, 1), (3, 1), (4, 1), (3, 2)][rng.integers(4)]
-        a = 2 if profile == "hls" else int(rng.integers(2, 4))
-        h = int(rng.integers(6, 20)) * 8  # *8 keeps h, w divisible by d
-        w = int(rng.integers(6, 20)) * 8
-        img = rng.integers(0, 256, size=(h, w, 3), dtype=np.uint8)
+        profile, cfg, img = draw_exact(seed)
+        profile, (h, w), (n, d), a = profile.value, cfg.in_shape, cfg.scale_h, cfg.a
         name = f"{profile} seed {seed} {h}x{w} {n}/{d} a={a}" + (
             f" P={bp}" if profile == "hls" else "")
         out.append((name, profile, (h, w), (n, d), a, bp, img))
     return out
-
-
-def exact_oracle(profile: str, img: np.ndarray, out: tuple, a: int, bp: int) -> np.ndarray:
-    """The host oracle of a bit-exact profile (runs in a worker process)."""
-    if profile == "hls":
-        from lanczos_torch.ref.hls_sim import hls_stream_upscale
-
-        return hls_stream_upscale(img, out[0], out[1], a, bp)
-    from lanczos_torch.ref.oracle import c_oracle_upscale
-
-    return c_oracle_upscale(img, out[0], out[1], a)
 
 
 def bit_exact_and_float_paths(img: np.ndarray, x, smi: str) -> dict:
@@ -396,6 +329,7 @@ def bit_exact_and_float_paths(img: np.ndarray, x, smi: str) -> dict:
     from lanczos_torch.models.upscaler import Upscaler, _shift_eligible
     from lanczos_torch.ref._native import native_lib
     from lanczos_torch.ref.oracle import c_oracle_upscale
+    from lanczos_torch.tools.hwcert import exact_oracle
 
     print(f"  c_oracle_upscale's height pass runs its "
           f"{'C' if native_lib() is not None else 'NumPy'} loop", flush=True)
@@ -1548,6 +1482,45 @@ def cli_and_files(img: np.ndarray, x, smi: str, upscaler_ms: float) -> None:
         torch.cuda.empty_cache()
 
 
+def certification(smi: str) -> None:
+    """Phase 28: the certification harness with ``hwcert.py``'s defaults,
+    in this process (the bit-exact seeds are phase 11's)."""
+    import contextlib
+    import io
+
+    from lanczos_torch.tools import hwcert
+
+    argv = ["--seeds", "40", "--exact-seeds", "0", "--aniso-seeds", "6", "--u16-seeds", "6",
+            "--y4m", "1", "--y4m-colorspaces", "420p10,422p12,mono"]
+    print(f"== 28. certification: python -m lanczos_torch.tools.hwcert {' '.join(argv)} "
+          f"[{smi}]", flush=True)
+    out = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = hwcert.main(argv)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    lines = [json.loads(line) for line in out.getvalue().splitlines() if line.startswith("{")]
+    rows, summary = lines[:-1], lines[-1]
+    routes = {}
+    for r in rows:
+        key = r.get("route", r.get("kind"))
+        routes[key] = routes.get(key, 0) + 1
+    print(f"  rows by route or class: {routes}; launches: {counts}", flush=True)
+    for r in rows:
+        if not r["ok"]:
+            print(f"  FAILED: {json.dumps(r)}", flush=True)
+    print(f"  summary: {json.dumps(summary)}", flush=True)
+    print(f"  certification took {wall:.1f} s", flush=True)
+    if rc != 0 or summary["failed"] or summary["seeds"] != 55:
+        raise AssertionError(f"certification: rc {rc}, {summary['failed']} of "
+                             f"{summary['seeds']} rows failed (55 expected)")
+    for family in ("fused_resample_", "shift_resample", "phase_"):
+        if not any(k.startswith(family) for k in counts):
+            raise AssertionError(f"certification: no {family}* kernel was launched")
+
+
 PR_SET_CHILD_SUBREAPER = 36  # <linux/prctl.h>
 
 
@@ -1860,7 +1833,7 @@ def main() -> None:
     print("== 5. times at 4K->8K (3 planes, CUDA events, mean of 20 after 3 warm-up; "
           "order plain, kernel, kernel, plain)", flush=True)
     kernels = []
-    frame = bound(cfgs["fp32"], 3)  # the same bytes and taps for every 4K->8K config
+    frame = kernel_bound(cfgs["fp32"], 3)  # the same bytes and taps for every 4K->8K config
     print(f"  bound: {frame['bytes'] / 1e6:.1f} MB at {HBM_TBPS} TB/s, "
           f"{frame['flops'] / 2e9:.2f} G multiply-adds at {FP32_PEAK_TFLOPS} TFLOP/s: "
           f"{frame['bound_ms']:.4f} ms by {frame['bound_by']}", flush=True)
@@ -2093,7 +2066,7 @@ def main() -> None:
         t = [cuda_time_ms(f) for f in (plain_fn, generic_fn, kernel_fn, kernel_fn, generic_fn,
                                        plain_fn)]
         ms, gen_ms, plain_ms = (t[2] + t[3]) / 2, (t[1] + t[4]) / 2, (t[0] + t[5]) / 2
-        bnd = bound(ops.cfg, 3)
+        bnd = kernel_bound(ops.cfg, 3)
         print(f"  {p} {name} ({pops.design}): kernel {t[2]:.4f} / {t[3]:.4f} ms/frame, "
               f"generic design forced {t[1]:.4f} / {t[4]:.4f}, plain version {t[0]:.4f} / "
               f"{t[5]:.4f} [{smi}]", flush=True)
@@ -2125,9 +2098,7 @@ def main() -> None:
         ]
         for kernel, kerr, kfn, pfn, nbytes, flops in halves:
             tt = [cuda_time_ms(f) for f in (pfn, kfn, kfn, pfn)]
-            t_b = nbytes / (HBM_TBPS * 1e12) * 1e3
-            t_f = flops / (FP32_PEAK_TFLOPS * 1e12) * 1e3
-            kb = dict(bound_ms=max(t_b, t_f), bound_by="bytes" if t_b >= t_f else "operations")
+            kb = bound_of(nbytes, flops)
             print(f"    {kernel} alone: {tt[1]:.4f} / {tt[2]:.4f} ms, its plain version "
                   f"{tt[0]:.4f} / {tt[3]:.4f}; bound {kb['bound_ms']:.4f} ms by "
                   f"{kb['bound_by']} ({nbytes / 1e6:.1f} MB, {flops / 2e9:.2f} G "
@@ -2182,6 +2153,7 @@ def main() -> None:
     streaming_and_video(img, x, smi, refs64, kernels)
     sharding(img, x, smi, kernels)
     cli_and_files(img, x, smi, upscaler_ms["fused kernel fp32 (auto) 4K->8K"])
+    certification(smi)
 
     left = stop_leftovers()
     print(f"  processes the run left running: {len(left)} (stopped)", flush=True)
