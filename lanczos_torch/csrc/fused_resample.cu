@@ -54,9 +54,8 @@
 //   4. trunc(clip(., 0, 255)) into the staged tile, then the store, masked at the ragged
 //      bottom and right edges.
 // Sums are fused multiply-adds in step order: the plain PyTorch version takes the same
-// taps in the same order unfused, so the two agree to the rounding of an fp32 sum
-// (fp32 <= 1 LSB on <= 1% of pixels, quantized intermediate <= 2 LSB, bf16 <= 3 LSB on
-// <= 50%), not byte for byte.
+// taps in the same order, each rounded once as fmaf rounds it (lanczos_torch/ops/_fma.py),
+// and gives identical bytes.
 //
 // Layouts (all row-major, contiguous; the wrapper checks them):
 //   x      (nc, H, W) uint8                   out    (nc, OH, OW) uint8

@@ -16,18 +16,20 @@
 // the config rounds the intermediate to bf16 before a rational horizontal pass, so does
 // every design here.
 //
-// Exactness: every sum is a multiply then an add, in tap order (__fmul_rn/__fadd_rn, so
-// nvcc's default --fmad=true cannot contract them into FMAs), and every design gives
-// exactly the bytes of the plain PyTorch version.  (The streamed pass starts a sum from
-// +0 where the plain version starts from the first product; that can change the sign of
-// an exactly zero partial sum and nothing else, and no byte.)  The TPU kernel summed a
+// Exactness: every sum is taken in tap order, each tap rounded once (a rounded product
+// first, __fmul_rn, then fused multiply-adds, __fmaf_rn), and every design gives exactly
+// the bytes of the plain PyTorch version, which rounds each tap once too
+// (lanczos_torch/ops/_fma.py): one rounding a tap keeps a constant plane constant, as the
+// reference's FMA-contracted tap chains do.  (The streamed pass starts a sum from +0
+// where the plain version starts from the first product; that can change the sign of an
+// exactly zero partial sum and nothing else, and no byte.)  The TPU kernel summed a
 // rational axis as dense per-tile hi/lo bf16 products; these kernels are band-sparse
 // (each output reads only its 2 s taps), so against the TPU only the order of those sums
 // differs.
 //
 // What bounds v1 on the H100: device memory by the count (8K->480x270 moves 99.9 MB for
-// 0.63 G multiply-adds: 0.030 ms at 3.35 TB/s against 0.019 at the SIMT peak), but an
-// unfused multiply and add a tap and a conversion a byte put the instruction slots of a good
+// 0.63 G multiply-adds: 0.030 ms at 3.35 TB/s against 0.019 at the SIMT peak), but a
+// multiply-add a tap and a conversion a byte put the instruction slots of a good
 // kernel at about the same time, so loads have to overlap arithmetic and nothing else
 // may be in the loop.  Three designs, chosen per plan on the host (choose_design):
 //
@@ -231,7 +233,7 @@ __global__ void __launch_bounds__(kMaxThreads)
         const uint8_t* v = band + off_v[r] * es + c;
         float acc = __fmul_rn(w[0], (float)v[0]);
         for (int t = 1; t < g.taps_v; ++t)
-          acc = __fadd_rn(acc, __fmul_rn(w[t], (float)v[t * es]));
+          acc = __fmaf_rn(w[t], (float)v[t * es], acc);
         store(mid + r * es + c, acc);
       }
       r += dq, sg += dr;
@@ -253,7 +255,7 @@ __global__ void __launch_bounds__(kMaxThreads)
         const MidT* m = mid + r * es + off_h[c];
         float acc = __fmul_rn(w[0], to_float(m[0]));
         for (int t = 1; t < g.taps_h; ++t)
-          acc = __fadd_rn(acc, __fmul_rn(w[t], to_float(m[t])));
+          acc = __fmaf_rn(w[t], to_float(m[t]), acc);
         op[(size_t)r * g.OW + c] = quantize(acc);
       }
       r += dq, sg += dr;
@@ -408,7 +410,7 @@ __global__ void __launch_bounds__(kStreamThreads)
 #pragma unroll
       for (int k = 0; k < LIVE; ++k)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) acc[k][c] = __fadd_rn(acc[k][c], __fmul_rn(w[k], xv[c]));
+        for (int c = 0; c < 4; ++c) acc[k][c] = __fmaf_rn(w[k], xv[c], acc[k][c]);
       if (++j == g.d) {  // the period ends: the oldest row is complete, the others age
         j = 0;
         const int r = q - (LIVE - 1);
@@ -521,7 +523,7 @@ __global__ void __launch_bounds__(kHThreads)
       const float* w = wh + wrow_h[c] * g.taps;
       const float* m = band + lane * es + off_h[c];
       float acc = __fmul_rn(w[0], m[0]);
-      for (int t = 1; t < g.taps; ++t) acc = __fadd_rn(acc, __fmul_rn(w[t], m[t]));
+      for (int t = 1; t < g.taps; ++t) acc = __fmaf_rn(w[t], m[t], acc);
       stage[lane * g.tc + c] = quantize(acc);
     }
   }
@@ -618,7 +620,7 @@ __device__ __forceinline__ void vertical_window(const uint8_t* band, float* mid,
           float acc = __fmul_rn(w[0], v[c][k * A::D + A::rel(p)]);
 #pragma unroll
           for (int t = 1; t < T; ++t)
-            acc = __fadd_rn(acc, __fmul_rn(w[t], v[c][k * A::D + A::rel(p) + t]));
+            acc = __fmaf_rn(w[t], v[c][k * A::D + A::rel(p) + t], acc);
           o[c] = round_mid<ROUND>(acc);
         }
         *reinterpret_cast<float4*>(mid + ((qg * K + k) * A::N + p) * g.mstr + 4 * cg) =
@@ -647,10 +649,10 @@ __device__ __forceinline__ void vertical_any(const uint8_t* band, float* mid, co
       }
       for (int t = 1; t < taps; ++t) {
         const unsigned word = __funnelshift_r(tp[t * bw4], tp[t * bw4 + 1], shift);
-        a0 = __fadd_rn(a0, __fmul_rn(w[t], byte_to_float<0>(word)));
-        a1 = __fadd_rn(a1, __fmul_rn(w[t], byte_to_float<1>(word)));
-        a2 = __fadd_rn(a2, __fmul_rn(w[t], byte_to_float<2>(word)));
-        a3 = __fadd_rn(a3, __fmul_rn(w[t], byte_to_float<3>(word)));
+        a0 = __fmaf_rn(w[t], byte_to_float<0>(word), a0);
+        a1 = __fmaf_rn(w[t], byte_to_float<1>(word), a1);
+        a2 = __fmaf_rn(w[t], byte_to_float<2>(word), a2);
+        a3 = __fmaf_rn(w[t], byte_to_float<3>(word), a3);
       }
       *reinterpret_cast<float4*>(mid + (q * g.nv + p) * g.mstr + 4 * cg) = make_float4(
           round_mid<ROUND>(a0), round_mid<ROUND>(a1), round_mid<ROUND>(a2), round_mid<ROUND>(a3));
@@ -700,7 +702,7 @@ __device__ __forceinline__ void horizontal_window(const float* mid, uint8_t* sta
           float acc = __fmul_rn(w[0], win[h][k * A::D + A::rel(p)]);
 #pragma unroll
           for (int t = 1; t < T; ++t)
-            acc = __fadd_rn(acc, __fmul_rn(w[t], win[h][k * A::D + A::rel(p) + t]));
+            acc = __fmaf_rn(w[t], win[h][k * A::D + A::rel(p) + t], acc);
           sp[h * tc + k * A::N + p] = quantize(acc);
         }
       }
@@ -719,7 +721,7 @@ __device__ __forceinline__ void horizontal_any(const float* mid, uint8_t* stage,
       const float* w = wh + p * taps;
       const float* m = mid + r * g.mstr + q * g.dh + rel_h[p];
       float acc = __fmul_rn(w[0], m[0]);
-      for (int t = 1; t < taps; ++t) acc = __fadd_rn(acc, __fmul_rn(w[t], m[t]));
+      for (int t = 1; t < taps; ++t) acc = __fmaf_rn(w[t], m[t], acc);
       stage[r * tc + q * g.nh + p] = quantize(acc);
     }
   }

@@ -13,14 +13,18 @@
 // Python's floor division, which C++ '/' would truncate for align="center"; the maps
 // with numpy's pad rules, so no padded copy of the image is ever made.
 //
-// Exactness: every sum is a multiply then an add, in tap order (__fmul_rn/__fadd_rn, so
-// nvcc's default --fmad=true cannot contract them into FMAs), and the kernel gives
-// exactly the bytes of its plain PyTorch version.
+// Exactness: every sum is taken in tap order, the first tap a rounded product
+// (__fmul_rn) and each later one a fused multiply-add (__fmaf_rn: the exact acc + w * x
+// rounded once), and the kernel gives exactly the bytes of its plain PyTorch version, which
+// rounds each tap once too (lanczos_torch/ops/_fma.py).  One rounding a tap keeps a
+// constant plane constant, as the reference's tap chains (which XLA's CPU backend
+// contracts into FMAs) do; a multiply and then an add rounds twice and drops some of its
+// outputs a level.
 //
 // What bounds it on the H100: device memory, as the fused kernel: at 4K->8K, 3 planes,
 // 124.4 MB of compulsory uint8 traffic (0.037 ms at 3.35 TB/s) against 0.9 G
-// multiply-adds, here 1.8 G unfused operations (0.054 ms at the SIMT fp32 peak if every
-// instruction slot were arithmetic).  What this design does about it:
+// multiply-adds (0.027 ms at the SIMT fp32 peak if every instruction slot were
+// arithmetic).  What this design does about it:
 //   - a thread owns whole phase periods: in the vertical pass 4 band columns x 4 source
 //     rows (all N_v phases of each), in the horizontal pass 2 rows x 4 source columns
 //     (all N_h phases of each).  It loads the 4 + 2*s source values of its run once into
@@ -96,7 +100,7 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::); }
 
 // One phase's outputs from a register window: sum_t w[t] * v[q + OFF + t] in tap order,
-// a multiply then an add, optionally clamped to the two central taps.  OFF is the
+// one rounding a tap, optionally clamped to the two central taps.  OFF is the
 // phase's floor + 1 (0 or 1); every index is a constant, so the window stays in registers.
 template <int S, bool DERING>
 struct Window {
@@ -111,7 +115,7 @@ struct Window {
     for (int q = 0; q < kRun; ++q) {
       float acc = __fmul_rn(w[0], v[q + OFF]);
 #pragma unroll
-      for (int t = 1; t < kTaps; ++t) acc = __fadd_rn(acc, __fmul_rn(w[t], v[q + OFF + t]));
+      for (int t = 1; t < kTaps; ++t) acc = __fmaf_rn(w[t], v[q + OFF + t], acc);
       if (DERING) acc = clamp_between(acc, v[q + OFF + S - 1], v[q + OFF + S]);
       o[q] = acc;
     }
@@ -123,7 +127,7 @@ template <bool DERING, typename T>
 __device__ __forceinline__ float tap_sum_mem(const float* __restrict__ w, const T* __restrict__ v,
                                              int stride, int taps, int s) {
   float acc = __fmul_rn(w[0], (float)v[0]);
-  for (int t = 1; t < taps; ++t) acc = __fadd_rn(acc, __fmul_rn(w[t], (float)v[t * stride]));
+  for (int t = 1; t < taps; ++t) acc = __fmaf_rn(w[t], (float)v[t * stride], acc);
   if (DERING) acc = clamp_between(acc, (float)v[(s - 1) * stride], (float)v[s * stride]);
   return acc;
 }

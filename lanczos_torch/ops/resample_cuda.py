@@ -61,6 +61,7 @@ from lanczos_torch.core.config import EdgeMode, Order, Precision, ResampleConfig
 from lanczos_torch.core.config import reduced_scale
 from lanczos_torch.core.weights import banded_weights
 from lanczos_torch.ops import _build
+from lanczos_torch.ops._fma import gather_sum
 from lanczos_torch.ops.resample_phase_cuda import PhaseOps, phase_call
 from lanczos_torch.ops.resample_shift_cuda import (
     GATHER, ShiftOps, integer_scale, shift_call,
@@ -465,14 +466,9 @@ def _reference_horizontal(plan: FusedPlan, precision: Precision, device: str):
 
 def _tap_pass(x: torch.Tensor, first: torch.Tensor, taps: torch.Tensor, axis: int):
     """``Σ_t taps[:, t] · x[first + t]`` along ``axis``, in tap order, each
-    term a multiply and then an add in fp32."""
-    shape = [1] * x.dim()
-    shape[axis] = first.numel()
-    acc = None
-    for t in range(taps.shape[1]):
-        term = taps[:, t].reshape(shape) * x.index_select(axis, first + t)
-        acc = term if acc is None else acc.add_(term)
-    return acc
+    tap rounded once in fp32 as the kernel's ``fmaf`` (:func:`gather_sum`)."""
+    rows = first[:, None] + torch.arange(taps.shape[1], device=first.device)
+    return gather_sum(x, axis, rows, taps)
 
 
 def _clamp_between(v: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -503,10 +499,8 @@ def fused_resample_reference(
     bf16: weights rounded to bf16 (:func:`plan_weights`), sums in fp32.
 
     The kernel takes the same sums over the same taps in the same order,
-    but fused (``fmaf``) where this takes a multiply and then an add, so
-    the two agree to the rounding of an fp32 sum, not byte for byte: the
-    kernel is held to fp32 ≤ 1 LSB on ≤ 1% of pixels (quantized
-    intermediate ≤ 2 LSB), bf16 ≤ 3 LSB on ≤ 50%.
+    each tap one ``fmaf`` as here (:func:`gather_sum`), and gives identical
+    bytes.
 
     ``wv`` (one shard's :class:`VerticalTables`) replaces the plan's
     vertical pass with the shard's, as :func:`fused_call`'s ``wv=`` does."""

@@ -2,9 +2,11 @@
 ``lanczos_tpu/ops/resample_xla.py`` (the ``"xla"`` backend).
 
 The banded operator ``out[y] = Σ_j w[y,j] · x[idx[y,j]]`` is applied as 2a
-``index_select`` gathers, each followed by a multiply and then an add, in
-tap order: the order that makes this path give the JAX gather path's
-bytes.  It is the portable reference path and the fallback for every float
+``index_select`` gathers in tap order, each tap rounded once
+(``ops._fma.gather_sum``): XLA's CPU backend contracts the JAX gather's tap
+chain into FMAs, and so does this path, which keeps a constant plane
+constant as the JAX one does.  An fp32 sum carries float64 temporaries
+for it.  It is the portable reference path and the fallback for every float
 config no kernel takes.  Every step is a plain tensor op, so autograd flows
 through it.
 
@@ -30,6 +32,7 @@ import torch
 
 from lanczos_torch.core.config import Order, ResampleConfig
 from lanczos_torch.core.weights import banded_weights
+from lanczos_torch.ops._fma import gather_sum
 from lanczos_torch.ops.resample_cuda import _clamp_between, _round_bf16
 
 
@@ -60,10 +63,7 @@ def apply_banded(
     """
     axis = axis % x.dim()
     taps = idx.shape[1]
-    acc = None
-    for j in range(taps):
-        term = axis_shape(w[:, j], x.dim(), axis) * x.index_select(axis, idx[:, j])
-        acc = term if acc is None else acc + term
+    acc = gather_sum(x, axis, idx, w)
     if dering:
         if a is None:
             a = taps // 2

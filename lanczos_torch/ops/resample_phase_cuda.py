@@ -14,8 +14,8 @@ integer upscale (D = 1, N ≤ 16).  Per axis, with N/D the reduced scale and
 
 where ``fl(p) = (2·p·D + off)//(2·N)`` (floor division; ``off`` is 0, or
 ``D − N`` with ``align="center"``): kernel 2's formula with D in place of
-1.  Each sum is taken in tap order, a multiply and then an add, and the
-output is trunc-clipped uint8.
+1.  Each sum is taken in tap order, each tap rounded once (the kernels'
+``fmaf``), and the output is trunc-clipped uint8.
 
 Precision follows the JAX v1: an integer axis (D = 1, N ≤ 16) keeps fp32
 weights in both modes; in bf16 a rational axis's weights are rounded to
@@ -175,8 +175,8 @@ def phase_resample_reference(
     """Plain PyTorch version of the v1 kernel: (NC, H, W) uint8 → (NC, OH,
     OW) uint8.  The vertical pass over every padded column, the bf16
     rounding of the intermediate where :meth:`PhasePlan.rounds_mid`, the
-    horizontal pass, ``trunc(clip(·, 0, 255))``; each sum in tap order, a
-    multiply and then an add (``resample_shift_cuda._shift_pass``)."""
+    horizontal pass, ``trunc(clip(·, 0, 255))``; each sum in tap order, each
+    tap rounded once (``resample_shift_cuda._shift_pass``)."""
     precision = Precision(precision)
     if x.dtype != torch.uint8 or x.dim() != 3:
         raise ValueError(f"expected (NC, H, W) uint8, got {tuple(x.shape)} {x.dtype}")

@@ -10,9 +10,10 @@ axes, with ``xp`` the input padded by ``support`` per side,
     out[r][c] = Σ_t tbl_h[c%N_h][t] · mid[r][c//N_h + fp_h[c%N_h] + 1 + t]
 
 where ``fp(p) = (2·p + off)//(2·N)`` (floor division; ``off`` is 0, or
-``1 − N`` with ``align="center"``).  Each sum is taken in tap order, a
-multiply and then an add, and with dering it is clamped to the [min, max]
-of its two central taps (t = support − 1, support).  The output is
+``1 − N`` with ``align="center"``).  Each sum is taken in tap order, each
+tap rounded once (the kernel's ``fmaf``; ``ops._fma.gather_sum`` here), and
+with dering it is clamped to the [min, max] of its two central taps
+(t = support − 1, support).  The output is
 trunc-clipped uint8 and written interleaved: the TPU kernel's
 phase-planar store, and the transpose after it, were a Mosaic workaround.
 
@@ -38,6 +39,7 @@ from lanczos_torch.core.config import EdgeMode, Order, ResampleConfig
 from lanczos_torch.core.config import reduced_scale
 from lanczos_torch.core.weights import phase_table
 from lanczos_torch.ops import _build
+from lanczos_torch.ops._fma import gather_sum
 
 # Launches of kernel 2 by this process; only shift_call adds to it, where
 # it launches.
@@ -131,12 +133,7 @@ def _shift_pass(x, tbl, fp, out_size: int, s: int, axis: int, dering: bool, d: i
     ph = o % n
     base = torch.from_numpy(((o // n) * d + fp[ph] + 1).astype(np.int64)).to(x.device)
     w = torch.from_numpy(np.ascontiguousarray(tbl[ph])).to(x.device)  # (out, 2s)
-    shape = [1] * x.dim()
-    shape[axis] = out_size
-    acc = None
-    for t in range(2 * s):
-        term = w[:, t].reshape(shape) * x.index_select(axis, base + t)
-        acc = term if acc is None else acc + term
+    acc = gather_sum(x, axis, base[:, None] + torch.arange(2 * s, device=x.device), w)
     if dering:
         c0 = x.index_select(axis, base + s - 1)
         c1 = x.index_select(axis, base + s)

@@ -3,8 +3,10 @@
 
 For ANY reduced rational scale N/D, output position k·N+p is
 Σ_t w[p,t]·x[kD + ⌊pD/N⌋ + 1 + t] over the support-padded input: every
-phase is a sum of 2·support stride-D slices times scalar weights, in tap
-order, a multiply and then an add, and the phases interleave with a
+phase is a sum of 2·support stride-D slices times scalar weights (fp32 in
+an fp32 sum), in tap order, each tap rounded once (``ops._fma.fma_sum``,
+as XLA's CPU backend contracts the JAX chain into FMAs), and the phases
+interleave with a
 stack+reshape.  Downscales get the stretched-kernel treatment (support =
 ⌈a·D/N⌉).  Named apart from ``resample_shift_cuda``, whose ``ShiftOps`` is
 kernel 2.
@@ -26,6 +28,7 @@ import torch
 
 from lanczos_torch.core.config import EdgeMode, Order, Precision, ResampleConfig
 from lanczos_torch.core.weights import phase_table
+from lanczos_torch.ops._fma import by_parts, fma_sum
 from lanczos_torch.ops.resample_cuda import _clamp_between, _round_bf16
 from lanczos_torch.ops.resample_gather import compute_dtype, quantize_uint8, store
 from lanczos_torch.ops.resample_shift_cuda import _PAD_MODE, _pad_map
@@ -42,29 +45,34 @@ def _axis_shift_pass(x, n, d, support, tbl, axis, dering, off=0):
     size = x.shape[axis]
     m = (size - 2 * support) // d  # output positions per phase
     taps = 2 * support
+    # the weights in the sums' own precision: an fp32 sum takes fp32 weights
+    wdt = np.float32 if x.dtype == torch.float32 else np.float64
+    rows = [[float(wdt(tbl[p, t])) for t in range(taps)] for p in range(n)]
 
-    def sl(lo):
-        idx = [slice(None)] * x.dim()
-        idx[axis] = slice(lo, lo + (m - 1) * d + 1, d)
-        return x[tuple(idx)]
+    def pass_(part):
+        src = part.double() if part.dtype == torch.float32 else part  # once, not a tap
 
-    phases = []
-    for p in range(n):
-        fp = (2 * p * d + off) // (2 * n)
-        slices = [sl(fp + 1 + t) for t in range(taps)]
-        acc = None
-        for t in range(taps):
-            term = float(tbl[p, t]) * slices[t]
-            acc = term if acc is None else acc + term
-        if dering:
-            acc = _clamp_between(acc, slices[support - 1], slices[support])
-        phases.append(acc)
-    if n == 1:
-        return phases[0]
-    stacked = torch.stack(phases, dim=axis + 1)  # (..., m, n, ...)
-    shape = list(x.shape)
-    shape[axis] = m * n
-    return stacked.reshape(shape)
+        def sl(v, lo):
+            idx = [slice(None)] * v.dim()
+            idx[axis] = slice(lo, lo + (m - 1) * d + 1, d)
+            return v[tuple(idx)]
+
+        phases = []
+        for p in range(n):
+            fp = (2 * p * d + off) // (2 * n)
+            row = rows[p]
+            acc = fma_sum(lambda t: (row[t], sl(src, fp + 1 + t)), taps, part, row)
+            if dering:
+                acc = _clamp_between(acc, sl(part, fp + support), sl(part, fp + 1 + support))
+            phases.append(acc)
+        if n == 1:
+            return phases[0]
+        stacked = torch.stack(phases, dim=axis + 1)  # (..., m, n, ...)
+        shape = list(part.shape)
+        shape[axis] = m * n
+        return stacked.reshape(shape)
+
+    return by_parts(x, axis, m * n, pass_)
 
 
 class StridedOps:

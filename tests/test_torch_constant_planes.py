@@ -3,11 +3,19 @@ on the port's fused plain version, the port's ``backend="xla"`` and the
 JAX ``Upscaler(backend="xla")`` alike, and dering gives exactly v.
 
 The exact result is v; an fp32 sum of the taps lands a few ulps to either
-side of it, and trunc-clip drops those below by a whole level.  This is
-the reference's own behaviour (its gather path, which ``hwcert.py`` treats
-as ground truth, gives v − 1 on up to 89% of such a plane), not a fault of
-the port; dering's clamp bounds are v itself.  Each test prints the share
-at v − 1 beside the JAX gather's."""
+side of it, and trunc-clip drops those below by a whole level.  Rounding
+once a tap (``fmaf`` on the card, ``ops._fma.fma_sum`` in the plain
+versions; XLA's CPU backend contracts the JAX tap chains into FMAs the
+same way) keeps most values, and every value the reference's own
+``tests/test_invariants.py`` holds (137 at 24×20, 2/1, a=3: see
+``tests/test_torch_invariants.py``); a multiply and then an add, which the
+port's plain versions took before, dropped 137 there on up to 75% of
+pixels.  The fused kernel folds clamped edge taps into one weight, so its
+edge rows and columns lose a level on more values than the gather's;
+dering's clamp bounds are v itself.  Each test prints the share at v − 1
+beside the JAX gather's.  ``lanczos_torch.tools.constant_planes`` counts
+the values that lose a level on each kernel family, and its count over a
+plane's distinct rows equals the plain version's over the whole plane."""
 
 import numpy as np
 import pytest
@@ -77,3 +85,21 @@ def test_constant_plane_in_v_minus_1_to_v(in_shape, scale, kw):
     print(f"{in_shape} {scale} {kw} worst share at v-1: "
           + ", ".join(f"{p} {s:.3f}" for p, s in worst.items())
           + f", JAX xla {max(jax_share.values()):.3f}")
+
+
+@pytest.mark.parametrize("in_shape,out_shape", [((24, 20), (48, 40)), ((24, 40), (36, 60))])
+def test_constant_planes_tool_counts_equal_the_whole_planes(in_shape, out_shape):
+    """The tool's count over each plane's distinct rows equals the plain
+    version's over the whole plane, for each family that takes the
+    config (kernel 2 integer scales only)."""
+    from lanczos_torch.tools import constant_planes as cp
+
+    cfg = lanczos_torch.ResampleConfig.from_profile("precise", in_shape, out_shape=out_shape, a=3)
+    for family in cp.FAMILIES:
+        if family == "kernel 2" and out_shape[0] % in_shape[0]:
+            with pytest.raises(NotImplementedError):
+                cp.family_ops(cfg, family, "cpu")
+            continue
+        ops = cp.family_ops(cfg, family, "cpu")
+        assert cp.plane_losses(ops, "cpu") == cp.distinct_row_losses(ops), family
+    assert cp.reference_137("cpu") == dict.fromkeys(cp.FAMILIES, 0.0)

@@ -9,7 +9,8 @@ held to the JAX package on the same seeded inputs.
   plan's dense matrices exactly;
 - the CUDA kernel's host-side layout (group windows, padding, the aligned
   band and intermediate origins, launch arguments), through a numpy
-  re-enactment of the kernel's loops.
+  re-enactment of the kernel's loops (each step one ``fmaf``), identical
+  bytes to the plain version.
 
 Limits (``hwcert.py``'s contract): fp32 ≤ 1 LSB on ≤ 1% of pixels (the
 TPU kernel's fp32 is a hi/lo bf16 split, the port's plain fp32); bf16
@@ -33,6 +34,7 @@ from lanczos_tpu.ops.resample_pallas import (  # noqa: E402
 from lanczos_torch.core.config import ResampleConfig  # noqa: E402
 from lanczos_torch.core.weights import banded_weights  # noqa: E402
 from lanczos_torch.ops import resample_cuda as rc  # noqa: E402
+from test_torch_fma import fma32  # noqa: E402
 
 LIMITS = {"fp32": (1, 0.01), "bf16": (3, 0.50)}
 
@@ -221,10 +223,10 @@ def _emulate_kernel(x, lay, oh, ow, bf16, dering=False, quant=False):
     def clamp(v, a, b):
         return np.minimum(np.maximum(v, np.minimum(a, b)), np.maximum(a, b))
 
-    def window_sum(a, wts):  # a (steps, m), wts (steps, 4) -> (m, 4), in step order
+    def window_sum(a, wts):  # a (steps, m), wts (steps, 4) -> (m, 4), in step order, fmaf
         acc = np.zeros((a.shape[1], 4), np.float32)
         for s in range(a.shape[0]):
-            acc = acc + a[s][:, None] * wts[s][None, :]
+            acc = fma32(acc, wts[s][None, :], a[s][:, None])
         return acc
 
     for p in range(nc):
@@ -298,9 +300,8 @@ def test_kernel_layout_reenacted(shape, scale, kw, tiles, precision):
     x = _img(shape, seed=2).transpose(2, 0, 1).copy()
     got = _emulate_kernel(x, lay, oh, ow, precision == "bf16")
     want = rc.fused_resample_reference(torch.from_numpy(x), plan, precision, (oh, ow))
-    d = np.abs(got.astype(np.int32) - want.numpy().astype(np.int32))
-    lim, frac_lim = LIMITS["fp32"]  # same rounding points: only sum order differs
-    assert d.max() <= lim and (d > 0).mean() <= frac_lim
+    # the same taps in the same order, each rounded once: identical bytes
+    np.testing.assert_array_equal(got, want.numpy())
 
 
 @pytest.mark.parametrize("precision", ["fp32", "bf16"])
@@ -335,9 +336,7 @@ def test_kernel_layout_reenacted_nonlinear(shape, scale, kw, tiles, precision):
                           cfg.intermediate_quantize)
     want = rc.fused_resample_reference(torch.from_numpy(x), plan, precision, (oh, ow),
                                        cfg.dering, cfg.intermediate_quantize)
-    d = np.abs(got.astype(np.int32) - want.numpy().astype(np.int32))
-    lim = 2 if cfg.intermediate_quantize else 1  # same rounding points, other sum order
-    assert d.max() <= lim and (d > 0).mean() <= 0.01
+    np.testing.assert_array_equal(got, want.numpy())  # one rounding a tap in both
 
 
 def expand_runs(first, taps, k):

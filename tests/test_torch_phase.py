@@ -39,6 +39,7 @@ from lanczos_torch.core.config import ResampleConfig  # noqa: E402
 from lanczos_torch.ops import _build  # noqa: E402
 from lanczos_torch.ops import resample_cuda as rc  # noqa: E402
 from lanczos_torch.ops import resample_phase_cuda as rp  # noqa: E402
+from test_torch_fma import fma32  # noqa: E402
 
 LIMITS = {"fp32": (1, 0.01), "bf16": (3, 0.50)}
 
@@ -124,10 +125,11 @@ def test_batched_planar_through_fused_ops():
 
 
 def _tap_sum(w, v):
-    """The kernel's sum in float32: multiply, then add, in tap order."""
+    """The kernel's sum in float32, in tap order: the first product, then
+    one rounding a tap (``__fmaf_rn``)."""
     acc = np.float32(w[0]) * v[0]
     for t in range(1, len(w)):
-        acc = acc + np.float32(w[t]) * v[t]
+        acc = fma32(acc, w[t], v[t])
     return acc
 
 
@@ -242,7 +244,7 @@ def _emulate_stream_v(x, plan, precision, oh, rpc):
                         stage[:n] = x[p, sr, cw0 : cw0 + n]
                     xv = stage.astype(np.float32)
                     for k in range(live):
-                        acc[k] = acc[k] + np.float32(wt[j, k]) * xv
+                        acc[k] = fma32(acc[k], wt[j, k], xv)
                     j += 1
                     if j == d:
                         j, r = 0, q - (live - 1)

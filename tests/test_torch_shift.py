@@ -36,6 +36,7 @@ from lanczos_torch.core.config import ResampleConfig  # noqa: E402
 from lanczos_torch.models.upscaler import Upscaler  # noqa: E402
 from lanczos_torch.ops import resample_cuda as rc  # noqa: E402
 from lanczos_torch.ops import resample_shift_cuda as rs  # noqa: E402
+from test_torch_fma import fma32  # noqa: E402
 
 # (in (h, w), out (h, w), overrides): every edge mode, both alignments,
 # dering on and off, an anisotropic N_v != N_h
@@ -117,10 +118,11 @@ def test_tables_from_reference_equal_the_ports_own(shape, out, kw):
 
 
 def _tap_sum(w, v, s, dering):
-    """The kernel's tap_sum in float32: multiply, then add, in tap order."""
+    """The kernel's tap_sum in float32, in tap order: the first product,
+    then one rounding a tap (``__fmaf_rn``)."""
     acc = np.float32(w[0]) * v[0]
     for t in range(1, len(w)):
-        acc = acc + np.float32(w[t]) * v[t]
+        acc = fma32(acc, w[t], v[t])
     if dering:
         a, b = v[s - 1], v[s]
         acc = np.minimum(np.maximum(acc, np.minimum(a, b)), np.maximum(a, b))
