@@ -161,10 +161,22 @@ not 0:
    the contract of ``backend="xla"`` (the reference's fp32 gather,
    ``hwcert.py``'s yardstick), within the contract's LSB bound of a float64
    gather, and its time beside its bound (mitchell and catmull_rom at
-   support 2, whatever a).
+   support 2, whatever a);
+31. the benchmark scripts as a user runs them, each a process of its own:
+   ``python -m lanczos_torch.tools.bench`` (the 4K→8K headline, batch-4
+   planar, fp32 and bf16) and ``python -m lanczos_torch.tools.bench_suite
+   --bf16 --mesh 4 --devices 8 --frames 16 --iters 10`` (every row of
+   ``BASELINE.json``'s table, the stream, the mesh and video rows on 8
+   positions of the one card); each row checked by the script against
+   ``backend="xla"`` (or one device) before it is timed; their JSON lines
+   echoed, a missing row, a row with no value or a non-zero exit failing
+   the phase; the headline beside phase 5's kernel time ×4 (the batch);
+   the fused kernels' launches in the rows' checked and timed calls (the
+   rows' ``launches``) as ``bench_launches``.
 
-The host references run on threads.  Phases 24 and 27 start processes
-(the CLI, the JPEG encoder, the examples) and wait for each.  The run
+The host references run on threads.  Phases 24, 27 and 31 start processes
+(the CLI, the JPEG encoder, the examples, the benchmark scripts) and wait
+for each.  The run
 makes itself the subreaper of whatever it starts, and at its end, and on
 any failure, stops each process of the run still alive and names it.
 
@@ -224,16 +236,9 @@ def compare(name: str, got, want, precision: str) -> tuple[int, float]:
     A uint8 frame on the card is compared there (``want`` uploaded), any
     other on the host."""
     if getattr(got, "is_cuda", False) and str(got.dtype) == "torch.uint8":
-        import torch
+        from lanczos_torch.tools.bench import diff
 
-        if not isinstance(want, torch.Tensor):
-            want = torch.from_numpy(np.ascontiguousarray(want))
-        want = want.to(got.device)
-        if got.shape != want.shape or got.dtype != want.dtype:
-            raise AssertionError(f"{name}: {tuple(got.shape)} {got.dtype} vs "
-                                 f"{tuple(want.shape)} {want.dtype}")
-        d = (got.to(torch.int32) - want.to(torch.int32)).abs_()
-        mx, frac = int(d.max()), float((d > 0).double().mean())
+        mx, frac = diff(name, got, want)
     else:
         got = got.detach().cpu().numpy() if hasattr(got, "detach") else got
         want = want.detach().cpu().numpy() if hasattr(want, "detach") else want
@@ -1184,10 +1189,13 @@ def start(cmd: list) -> subprocess.Popen:
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
 
-def finish(proc: subprocess.Popen, name: str, timeout: float = 300) -> str:
+def finish(proc: subprocess.Popen, name: str, timeout: float = 300, echo: bool = False) -> str:
     """``proc``'s standard output; raises, with the end of its errors, if it
-    failed."""
+    failed; with ``echo``, prints its errors' lines first."""
     out, err = proc.communicate(timeout=timeout)
+    if echo:
+        for line in err.splitlines():
+            print(f"  {line}", flush=True)
     if proc.returncode != 0:
         raise AssertionError(f"{name} exited {proc.returncode}:\n{err[-3000:]}")
     return out
@@ -1694,6 +1702,70 @@ def other_filters(img: np.ndarray, smi: str) -> None:
 
 
 PR_SET_CHILD_SUBREAPER = 36  # <linux/prctl.h>
+
+
+HEADLINE = "3840x2160->7680x4320_lanczos3_upscale"
+SUITE_ARGS = ["--bf16", "--mesh", "4", "--devices", "8", "--frames", "16", "--iters", "10"]
+SUITE_ROWS = [
+    "256x256->512x512_a2", "1080p->4K_a3", "batch32_1080p->4K_a3",
+    "batch32_1080p->4K_a3_planar", "4K->8K_a3", "4K->8K+1px_a3_largeN",
+    "4K->8K_a3_dropnorm", "4K->8K_a3_dropdering", "4K->8K_a3_wf_quant",
+    "7680x4320_a3_bf16", "stream7680x4320_a3_chunk1024", "7680x4320_a3_mesh2x4",
+    "video16f_7680x4320_mesh2x4",
+]
+
+
+def bench_scripts(smi: str, kernels: list) -> None:
+    """Phase 31: ``python -m lanczos_torch.tools.bench`` and ``bench_suite``
+    as a user runs them, each a process of its own, one after the other;
+    their JSON lines echoed, the launches of their rows' checked and timed
+    calls (not the kernel alone beside them) as the fused kernels'
+    ``bench_launches``, the headline beside phase 5's kernel time."""
+    import torch
+
+    print(f"== 31. the benchmark scripts as processes: python -m lanczos_torch.tools.bench; "
+          f"python -m lanczos_torch.tools.bench_suite {' '.join(SUITE_ARGS)} [{smi}]",
+          flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    rows = {}
+    for module, args in (("lanczos_torch.tools.bench", []),
+                         ("lanczos_torch.tools.bench_suite", SUITE_ARGS)):
+        t0 = time.perf_counter()
+        out = finish(start(["-m", module] + args), module, timeout=400, echo=True)
+        for line in out.splitlines():
+            if line.startswith("{"):
+                print(line, flush=True)
+                row = json.loads(line)
+                rows[row["metric"]] = row
+        print(f"  {module}: {time.perf_counter() - t0:.1f} s", flush=True)
+    missing = [m for m in [HEADLINE] + SUITE_ROWS if m not in rows]
+    if missing:
+        raise AssertionError(f"rows missing from the scripts' output: {missing}")
+    unmeasured = [m for m, r in rows.items() if r["value"] is None]
+    if unmeasured:
+        raise AssertionError(f"rows with no value on the card: {unmeasured}")
+    for m in SUITE_ROWS[-2:]:
+        if rows[m]["virtual_mesh"] is not True or rows[m]["vs_baseline"] is not None:
+            raise AssertionError(f"{m}: 8 positions on one card must be a virtual mesh")
+    head = rows[HEADLINE]
+    if not {"fused_resample_fp32", "fused_resample_bf16"} <= set(head["launches"]):
+        raise AssertionError(f"bench launched {head['launches']}: not both fused tiers")
+    by_name = {k["name"]: k for k in kernels}
+    for tier, key in (("fp32", "band_ms"), ("bf16", "bf16_band_ms")):
+        call = head[key][1]
+        kernel = by_name[f"fused_resample_{tier}"]["ms"]
+        print(f"  headline {tier}: {call:.4f} ms/frame, a batch-4 call {4 * call:.4f} ms; "
+              f"phase 5's fused kernel {kernel:.4f} ms a 3-plane frame, x4 = "
+              f"{4 * kernel:.4f} ms: call / kernel {call / kernel:.3f}", flush=True)
+    launches = {}
+    for r in rows.values():
+        for k, n in r["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    print(f"  launches of the rows' checked and timed calls: {launches}", flush=True)
+    for k in kernels:
+        if k["name"].startswith("fused_resample_"):
+            k["bench_launches"] = launches.get(k["name"], 0)
 
 
 def adopt_orphans() -> None:
@@ -2327,6 +2399,7 @@ def main() -> None:
     certification(smi)
     constant_planes(smi)
     other_filters(img, smi)
+    bench_scripts(smi, kernels)
 
     left = stop_leftovers()
     print(f"  processes the run left running: {len(left)} (stopped)", flush=True)

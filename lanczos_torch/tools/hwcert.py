@@ -114,7 +114,9 @@ def frac_limit(cfg) -> float:
     return 0.50 if cfg.precision == Precision.BF16 else 0.01
 
 
-def _launch_counts() -> dict:
+def launch_counts() -> dict:
+    """Kernel launches of this process so far, by kernel (every wrapper's
+    count)."""
     from lanczos_torch.ops import resample_cuda as rc
     from lanczos_torch.ops import resample_phase_cuda as rp
     from lanczos_torch.ops import resample_shift_cuda as rs
@@ -125,9 +127,9 @@ def _launch_counts() -> dict:
 
 def _launched(fn) -> tuple:
     """``fn()``'s output on the host and the kernels it launched."""
-    before = _launch_counts()
+    before = launch_counts()
     y = fn().cpu().numpy()  # the copy waits for the card
-    return y, {k: n - before[k] for k, n in _launch_counts().items() if n > before[k]}
+    return y, {k: n - before[k] for k, n in launch_counts().items() if n > before[k]}
 
 
 def _diff(got: np.ndarray, want: np.ndarray) -> tuple:
@@ -444,12 +446,13 @@ def run_y4m_cert(cpu_smoke: bool, colorspace: str = "420p10", device="cuda") -> 
     }
 
 
-def power_limit() -> str | None:
-    """The card's name and power limit as ``nvidia-smi`` reports them, or
-    None where there is no ``nvidia-smi``."""
+def nvidia_smi(query: str = "name,power.limit") -> str | None:
+    """The first card's line of ``nvidia-smi --query-gpu=<query>
+    --format=csv,noheader`` (by default its name and power limit), or None
+    where there is no ``nvidia-smi``."""
     try:
         out = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
             capture_output=True, text=True, check=True, timeout=60,
         ).stdout
     except (OSError, subprocess.SubprocessError):
@@ -481,7 +484,7 @@ def summarize(rows: list, device_name: str, mode: str, wall_s: float) -> dict:
     return {
         "summary": True,
         "device": device_name,
-        "power_limit": power_limit() if mode == "hardware" else None,
+        "power_limit": nvidia_smi() if mode == "hardware" else None,
         "mode": mode,
         "seeds": len(rows),
         "passed": len(rows) - fails,

@@ -295,9 +295,9 @@ dryrun_multichip(2, ["cpu"] * 2)
 
 
 def test_import_without_jax():
-    """The port, its codecs, CLI, loader, entry points, profiling module and
-    certification harness (``--help``) run with JAX made unimportable, and
-    no ``lanczos_tpu`` module is ever loaded."""
+    """The port, its codecs, CLI, loader, entry points, profiling module,
+    certification harness and benchmark scripts (``--help``) run with JAX
+    made unimportable, and no ``lanczos_tpu`` module is ever loaded."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -310,11 +310,12 @@ def test_import_without_jax():
         "from lanczos_torch.utils import profiling\n"
         "assert profiling.chip_spec('cpu') == profiling.CHIP_SPECS['cpu']\n"
         "import runpy\n"
-        "sys.argv = ['hwcert', '--help']\n"
-        "try:\n"
-        "    runpy.run_module('lanczos_torch.tools.hwcert', run_name='__main__')\n"
-        "except SystemExit as e:\n"
-        "    assert e.code == 0, e.code\n"
+        "for tool in ('hwcert', 'bench', 'bench_suite'):\n"
+        "    sys.argv = [tool, '--help']\n"
+        "    try:\n"
+        "        runpy.run_module('lanczos_torch.tools.' + tool, run_name='__main__')\n"
+        "    except SystemExit as e:\n"
+        "        assert e.code == 0, (tool, e.code)\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'lanczos_tpu'))"
         " for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n"
