@@ -1,6 +1,8 @@
-"""Smoke test of the PyTorch/CUDA port (``lanczos_torch``) on one GPU.
+"""Smoke test of the PyTorch/CUDA port (``lanczos_torch``) on one GPU, or on
+every visible GPU for the sharded paths.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py               # every phase; needs one card
+    python3 chip_smoke.py --sharding    # phases 1, 2, 32 and 18-23 alone
 
 Phases, each printing as it goes; any failure raises and the exit code is
 not 0:
@@ -93,23 +95,28 @@ not 0:
    tall frame; video frames/s at batch 1, 4 and 8; ``upscale_y4m`` beside
    its reader, its writer and its kernels alone;
 18. the sharded fused path: 2 4K frames through ``ShardedUpscaler`` on
-   ``Mesh.local([cuda:0] * 8, (2, 4))`` in fp32, bf16, with dering and
-   with the quantized intermediate, channel groups on and off, each with
-   its launch count (R a frame, 2R with channel groups) and byte-equal to
-   ``Upscaler(cfg)`` on the card;
+   ``Mesh.local(spread(8, cards), (2, 4))`` (position i on card i mod the
+   cards visible: all 8 on one card, each rows ring across the cards where
+   there are several) in fp32, bf16, with dering and with the quantized
+   intermediate, channel groups on and off, each with its launch count (R
+   a frame, 2R with channel groups) and byte-equal to ``Upscaler(cfg)`` on
+   the card;
 19. the other sharded paths on (1, 4) at 4K→8K: gather (drop edges),
    shift, ``hls`` a=2, ``c_oracle`` a=3 and uint16, each byte-equal to the
    same path on one device;
 20. ``ShardedStreamingUpscaler`` (R = 4, ``chunk_rows=1024``) on the
-   17280×3840 frame, byte-equal to ``StreamingUpscaler``;
+   17280×3840 frame, byte-equal to ``StreamingUpscaler``; its wall time
+   into page-locked memory and the peak device memory of each card;
 21. ``VideoUpscaler(mesh=(2, 2))`` on 16 4K frames, byte-equal to
    ``Upscaler`` a frame;
 22. a one-rank NCCL process group: ``Mesh.distributed`` running the fused
-   sharded path, equal to the local mesh; ``measure_ici_bw`` must raise;
-23. times on one card for R = 1, 2, 4, 8: each shard's kernel (direct
-   library calls), the halo copies, the sharded frame (events and wall),
-   and ``ici_halo_model`` for 4 NVLink cards fed this run's frame time
-   (a model, printed as one);
+   sharded path, equal to the local mesh; ``measure_ici_bw`` must raise
+   where the rows ring has one card, and measures it where it has several;
+23. times for R = 1, 2, 4, 8: each shard's kernel (direct library calls,
+   timed by events on its card), the halo copies and the sharded frame
+   (events on one card; the host clock between synchronizing every card
+   where the mesh spans several), and ``ici_halo_model`` for 4 NVLink
+   cards fed this run's frame time (a model, printed as one);
 24. the CLI at full width: ``python -m lanczos_torch in.png out.png
    --scale 2/1 --no-psnr`` in its own process on a seeded 4K PNG written
    by the port's ``write_png``, fp32 and ``--precision bf16``, each with
@@ -173,6 +180,18 @@ not 0:
    the phase; the headline beside phase 5's kernel time ×4 (the batch);
    the fused kernels' launches in the rows' checked and timed calls (the
    rows' ``launches``) as ``bench_launches``.
+32. across cards, where two or more are visible (on one card it prints
+   that it did not run): the peer access matrix; ``python -m
+   lanczos_torch.tools.multicard`` as processes, ``--local`` (one process
+   over the cards on every (data, rows) mesh shape, every case byte-equal
+   to one card, with frame, halo, ring and video times), ``--ranks 2``,
+   ``--ranks N`` and ``--ranks 1`` (NCCL ranks, one a card);
+   ``upscale(mesh=)`` on (1, N) with its launches and ``upscale_y4m(mesh=)``,
+   each byte-equal to one card; ``dryrun_multichip(N, cuda:0..N-1)``;
+   examples 03 and 06 with ``--n N``; ``bench_suite --mesh N --devices N
+   --frames 16``, whose mesh and video rows must be measured on real cards
+   (``virtual_mesh`` false, ``measured_eff`` and ``ici_bw`` set).  Every
+   step runs; the phase fails at its end if one failed.
 
 The host references run on threads.  Phases 24, 27 and 31 start processes
 (the CLI, the JPEG encoder, the examples, the benchmark scripts) and wait
@@ -219,6 +238,7 @@ import numpy as np
 # the H100's peak rates (NVIDIA's data sheet, SXM at 700 W: SIMT fp32 and
 # device memory), the kernels' bound and the float64 reference
 from lanczos_torch.ref.gather import gather_f64
+from lanczos_torch.tools.bench import sync_cards  # every card: a sharded call spans them
 from lanczos_torch.utils.profiling import FP32_PEAK_TFLOPS, HBM_TBPS, bound_of, kernel_bound
 
 LIMITS = {"fp32": (1, 0.01), "bf16": (3, 0.50), "quant": (2, 0.01), "exact": (0, 0.0),
@@ -229,6 +249,13 @@ FRAME = (2160, 3840)  # the main path's input, 4K; output 2x each way
 # a rational scale (563/540 by 667/640) only the block path takes
 BLOCK_CASE = ((1080, 1920), (1126, 2001))
 T0 = time.perf_counter()
+
+
+def spread(n: int, cards: int) -> list:
+    """``n`` mesh positions over ``cards`` CUDA cards, position i on card i mod
+    cards: on one card all of them share it, on several every rows ring
+    crosses between cards."""
+    return [f"cuda:{i % max(1, cards)}" for i in range(n)]
 
 
 def compare(name: str, got, want, precision: str) -> tuple[int, float]:
@@ -494,16 +521,14 @@ def bit_exact_and_float_paths(img: np.ndarray, x, smi: str) -> dict:
 def wall_ms(fn, iters: int = 5, warmup: int = 2) -> float:
     """Mean host milliseconds per call of ``fn``, which must end with the
     device idle (the streaming and video entry points wait for their last
-    readback); the card is synchronized before and after."""
-    import torch
-
+    readback); every card is synchronized before and after."""
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
+    sync_cards()
     t0 = time.perf_counter()
     for _ in range(iters):
         fn()
-    torch.cuda.synchronize()
+    sync_cards()
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
@@ -959,8 +984,13 @@ def sharding(img: np.ndarray, x, smi: str, kernels: list) -> None:
     def profile(shape, name="precise", **kw):
         return lanczos_torch.ResampleConfig.from_profile(name, shape, **kw)
 
+    cards = torch.cuda.device_count()
+
     def mesh_of(shape):
-        return Mesh.local([dev] * (shape[0] * shape[1]), shape)
+        return Mesh.local(spread(shape[0] * shape[1], cards), shape)
+
+    def where(n: int) -> str:
+        return f"{n} positions on {min(n, cards)} card{'s' if min(n, cards) > 1 else ''}"
 
     def identical(name: str, got, want) -> None:
         same = got.shape == want.shape and got.dtype == want.dtype and torch.equal(got, want)
@@ -970,7 +1000,7 @@ def sharding(img: np.ndarray, x, smi: str, kernels: list) -> None:
 
     # ---- 18. the sharded fused path at full width
     print("== 18. sharded fused path: 2 frames 2160x3840x3 -> 4320x7680x3 on "
-          "Mesh.local([cuda:0] * 8, (2, 4))", flush=True)
+          f"Mesh.local({spread(8, cards)}, (2, 4)): {where(8)}", flush=True)
     frames2 = torch.stack([x, torch.from_numpy(np.random.default_rng(18).integers(
         0, 256, FRAME + (3,), dtype=np.uint8)).to(dev)])
     mesh24 = mesh_of((2, 4))
@@ -1006,7 +1036,7 @@ def sharding(img: np.ndarray, x, smi: str, kernels: list) -> None:
     torch.cuda.empty_cache()
 
     # ---- 19. the other sharded paths
-    print("== 19. the other sharded paths at 4K->8K on Mesh.local([cuda:0] * 4, (1, 4))",
+    print(f"== 19. the other sharded paths at 4K->8K on Mesh.local({spread(4, cards)}, (1, 4))",
           flush=True)
     mesh14 = mesh_of((1, 4))
     x1 = x[None]
@@ -1037,8 +1067,8 @@ def sharding(img: np.ndarray, x, smi: str, kernels: list) -> None:
         torch.cuda.empty_cache()
 
     # ---- 20. the sharded stream
-    print(f"== 20. ShardedStreamingUpscaler (R = 4, chunk_rows=1024) on {TALL[0]}x{TALL[1]}x3",
-          flush=True)
+    print(f"== 20. ShardedStreamingUpscaler (R = 4, chunk_rows=1024) on {TALL[0]}x{TALL[1]}x3, "
+          f"{where(4)}", flush=True)
     tall = np.random.default_rng(15).integers(0, 256, TALL + (3,), dtype=np.uint8)
     cfg_t = profile(TALL, scale=(2, 1), a=3)
     base = lanczos_torch.StreamingUpscaler(cfg_t, chunk_rows=1024, device=dev)
@@ -1056,10 +1086,18 @@ def sharding(img: np.ndarray, x, smi: str, kernels: list) -> None:
         raise AssertionError(f"sharded stream: launches {n}")
     chunks_equal("sharded stream vs StreamingUpscaler", got, want)
     del got, want
+    ring = sorted({str(d) for d in ssm._ring})
+    for d in ring:
+        torch.cuda.reset_peak_memory_stats(d)
+    ms = wall_ms(lambda: ssm(tall), iters=2, warmup=1)
+    peaks = ", ".join(f"{d} {torch.cuda.max_memory_allocated(d) / 2**30:.3f}" for d in ring)
+    print(f"  ssm(tall) into page-locked memory: {ms:.1f} ms wall a frame ({TALL[0]}x{TALL[1]}x3 "
+          f"-> {2 * TALL[0]}x{2 * TALL[1]}x3); peak device memory, GiB: {peaks} [{smi}]",
+          flush=True)
 
     # ---- 21. video on a mesh
-    print("== 21. VideoUpscaler(mesh=Mesh.local([cuda:0] * 4, (2, 2))): 16 frames 4K->8K",
-          flush=True)
+    print(f"== 21. VideoUpscaler(mesh=Mesh.local({spread(4, cards)}, (2, 2))): 16 frames "
+          "4K->8K", flush=True)
     cfg = profile(FRAME, scale=(2, 1), a=3)
     frames16 = np.random.default_rng(16).integers(0, 256, (16,) + FRAME + (3,), dtype=np.uint8)
     vu = lanczos_torch.VideoUpscaler(cfg, batch=3, mesh=mesh_of((2, 2)))
@@ -1085,7 +1123,7 @@ def sharding(img: np.ndarray, x, smi: str, kernels: list) -> None:
         port = sock.getsockname()[1]
     multihost.initialize(f"127.0.0.1:{port}", num_processes=1, process_id=0, backend="nccl")
     try:
-        dmesh = Mesh.distributed((2, 4), [dev] * 8)
+        dmesh = Mesh.distributed((2, 4), spread(8, cards))
         print(f"  {dmesh}, backend {dist.get_backend()}", flush=True)
         cfg = profile(FRAME, scale=(2, 1), a=3)
         reset_counts()
@@ -1094,56 +1132,71 @@ def sharding(img: np.ndarray, x, smi: str, kernels: list) -> None:
         print(f"  launches {read_counts()}", flush=True)
         identical("fused path on the distributed mesh vs the local mesh", got,
                   Sharded(cfg, mesh24)(frames2))
-        try:
-            multihost.measure_ici_bw(dmesh)
-        except ValueError as e:
-            print(f"  measure_ici_bw on one card raised, as it must: {e}", flush=True)
+        if dmesh.distinct_on("rows", (0, 0)) >= 2:  # the rows ring spans cards
+            print(f"  measure_ici_bw on the rows ring of {where(4)}: "
+                  f"{multihost.measure_ici_bw(dmesh) / 1e9:.1f} GB/s a direction", flush=True)
         else:
-            raise AssertionError("measure_ici_bw measured a ring on one card")
+            try:
+                multihost.measure_ici_bw(dmesh)
+            except ValueError as e:
+                print(f"  measure_ici_bw on one card raised, as it must: {e}", flush=True)
+            else:
+                raise AssertionError("measure_ici_bw measured a ring on one card")
         del got
     finally:
         dist.destroy_process_group()
     del frames2
 
     # ---- 23. times
-    print(f"== 23. sharding times on one card, 4K->8K fp32, one frame [{smi}]", flush=True)
+    print(f"== 23. sharding times on {cards} card{'s' if cards > 1 else ''}, 4K->8K fp32, one "
+          f"frame [{smi}]", flush=True)
     cfg = profile(FRAME, scale=(2, 1), a=3)
     whole_ops = rc.FusedOps(cfg, dev)
     planar = x.permute(2, 0, 1).contiguous()
     launch = _build.library().lanczos_fused_resample
 
-    def kernel_ms(call) -> float:
-        """Device ms of the one launch ``call`` makes, repeated as direct
-        library calls (the wrapper's host cost kept out)."""
-        args, out = pk.launch_args("lanczos_fused_resample", call)
-        ms = pk.time_ms(launch, args, iters=50)
+    def kernel_ms(call, device) -> float:
+        """Device ms of the one launch ``call`` makes on ``device``, repeated
+        as direct library calls (the wrapper's host cost kept out)."""
+        with torch.cuda.device(device):
+            args, out = pk.launch_args("lanczos_fused_resample", call)
+            ms = pk.time_ms(launch, args, iters=50)
         del out  # the launches wrote into it
         return ms
 
-    whole_ms = kernel_ms(lambda: rc.fused_call(whole_ops, planar))
+    whole_ms = kernel_ms(lambda: rc.fused_call(whole_ops, planar), dev)
     print(f"  whole-frame kernel (50 direct calls; event): {whole_ms:.4f} ms", flush=True)
     frame_ms = {}
     for R in (1, 2, 4, 8):
         mesh = mesh_of((1, R))
+        # events see one card's stream: a mesh over several cards is timed by
+        # the host clock between synchronizing every card
+        one_card = len({str(mesh.device(p)) for p in mesh.positions()}) == 1
+        clock = "event" if one_card else "wall"
+
+        def ms_of(fn):
+            return cuda_time_ms(fn) if one_card else wall_ms(fn, iters=20)
+
         sh = Sharded(cfg, mesh, overlap=False)
-        t = sh._tables(dev)
         ext = halo_exchange_rows(mesh, sh._blocks(x1), sh.halo)
-        planars = {p: e[0].permute(2, 0, 1).contiguous() for p, e in ext.items()}
-        shard_ms = [kernel_ms(lambda: rc.fused_call(t.fused, pl, wv=t.wv[p[1]]))
-                    for p, pl in planars.items()]
+        shard_ms = []
+        for p, e in ext.items():
+            pl, t = e[0].permute(2, 0, 1).contiguous(), sh._tables(e.device)
+            shard_ms.append(kernel_ms(lambda: rc.fused_call(t.fused, pl, wv=t.wv[p[1]]),
+                                      e.device))
         blocks = sh._blocks(x1)
-        halo_ms = cuda_time_ms(lambda: halo_exchange_rows(mesh, blocks, sh.halo))
-        serial_ev = cuda_time_ms(lambda: sh(x1))
+        halo_ms = ms_of(lambda: halo_exchange_rows(mesh, blocks, sh.halo))
+        serial_ev = ms_of(lambda: sh(x1))
         serial_wall = wall_ms(lambda: sh(x1), iters=20)
         over = Sharded(cfg, mesh)
-        over_ev, over_wall = cuda_time_ms(lambda: over(x1)), wall_ms(lambda: over(x1), iters=20)
+        over_ev, over_wall = ms_of(lambda: over(x1)), wall_ms(lambda: over(x1), iters=20)
         frame_ms[R] = serial_ev
         halo_bytes = sh.halo_spec()["bytes"]
-        print(f"  R={R}: shard kernels (direct calls; event) "
+        print(f"  R={R} ({where(R)}): shard kernels (direct calls; event, each on its card) "
               f"{', '.join(f'{m:.4f}' for m in shard_ms)} ms, sum {sum(shard_ms):.4f} "
               f"({sum(shard_ms) / whole_ms:.2f}x the whole-frame kernel); halo exchange of the "
-              f"frame (event) {halo_ms:.4f} ms, {halo_bytes} B a direction a shard; sharded "
-              f"frame serial {serial_ev:.4f} ms event / {serial_wall:.4f} ms wall "
+              f"frame ({clock}) {halo_ms:.4f} ms, {halo_bytes} B a direction a shard; sharded "
+              f"frame serial {serial_ev:.4f} ms {clock} / {serial_wall:.4f} ms wall "
               f"({R} launches: {serial_wall / R:.4f} ms wall a launch), overlapped (2 channel "
               f"groups) {over_ev:.4f} / {over_wall:.4f} ({2 * R} launches)", flush=True)
     model = multihost.ici_halo_model(cfg, 4, whole_ms * 1e-3)
@@ -1768,6 +1821,148 @@ def bench_scripts(smi: str, kernels: list) -> None:
             k["bench_launches"] = launches.get(k["name"], 0)
 
 
+def run_echoed(args: list, name: str, timeout: float) -> tuple:
+    """``python <args>`` as a process of its own: ``(exit code, its JSON lines
+    parsed)``, every line of its output and the end of its errors echoed."""
+    proc = start(args)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+        err += f"\n{name}: killed after {timeout} s"
+    for line in out.splitlines():
+        print(f"  {line}", flush=True)
+    if proc.returncode != 0:
+        print(f"  {name} exited {proc.returncode}; the end of its errors:", flush=True)
+        for line in err[-4000:].splitlines():
+            print(f"    {line}", flush=True)
+    return proc.returncode, [json.loads(v) for v in out.splitlines() if v.startswith("{")]
+
+
+def across_cards(img: np.ndarray, smi: str) -> None:
+    """Phase 32: the sharded paths over every visible card, when there are
+    two or more: ``tools/multicard.py`` in both forms (one process over
+    ``Mesh.local`` of the cards on every mesh shape, and 2 and N NCCL ranks,
+    and one), ``upscale(mesh=)``, ``upscale_y4m(mesh=)``,
+    ``dryrun_multichip``, examples 03 and 06 and ``bench_suite``'s mesh and
+    video rows, each byte-equal to one card.  Every step runs; the phase
+    fails at its end if one failed.  On one card it prints that it did not
+    run."""
+    import torch
+
+    import lanczos_torch
+    from lanczos_torch.entry import dryrun_multichip
+    from lanczos_torch.io import y4m
+    from lanczos_torch.parallel.mesh import Mesh
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print(f"== 32. the sharded paths across cards: not run, {cards} card visible (the "
+              "phase needs 2 or more; phases 18-23 ran every mesh on the one card)", flush=True)
+        return
+    t32 = time.perf_counter()
+    devs = spread(cards, cards)
+    print(f"== 32. the sharded paths across {cards} cards, {devs} [{smi}]", flush=True)
+    peers = [[None if i == j else bool(torch.cuda.can_device_access_peer(i, j))
+              for j in range(cards)] for i in range(cards)]
+    print(f"  peer access, row i: can cuda:i read cuda:j directly: {json.dumps(peers)}",
+          flush=True)
+    torch.cuda.empty_cache()
+    failed = []
+    forms = [["--local", "--ranks", str(cards)], ["--ranks", "2"], ["--ranks", str(cards)],
+             ["--ranks", "1"]]
+    for form in forms[:2] + forms[2 if cards > 2 else 3:]:
+        name = "multicard " + " ".join(form)
+        t0 = time.perf_counter()
+        code, lines = run_echoed(["-m", "lanczos_torch.tools.multicard", *form], name, 400)
+        ok = code == 0 and bool(lines) and lines[-1].get("ok") is True
+        print(f"  {name}: {'passed' if ok else 'FAILED'} in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        if not ok:
+            failed.append(name)
+
+    def step(name: str, fn) -> None:
+        t0 = time.perf_counter()
+        try:
+            fn()
+            print(f"  {name}: passed in {time.perf_counter() - t0:.1f} s", flush=True)
+        except Exception as e:  # the phase fails at its end; the next step still runs
+            print(f"  {name}: FAILED: {type(e).__name__}: {e}", flush=True)
+            failed.append(name)
+
+    rows_mesh = Mesh.local(devs, (1, cards))
+    x1 = torch.from_numpy(img[None]).cuda()
+
+    def upscale_on_mesh() -> None:
+        want = lanczos_torch.upscale(x1, scale=(2, 1))
+        sync_cards()
+        reset_counts()
+        got = lanczos_torch.upscale(x1, scale=(2, 1), mesh=rows_mesh)
+        sync_cards()
+        n = read_counts()
+        ms = wall_ms(lambda: lanczos_torch.upscale(x1, scale=(2, 1), mesh=rows_mesh), iters=3)
+        print(f"  upscale(mesh=Mesh.local({devs}, (1, {cards}))): launches {n}, {ms:.4f} ms wall "
+              "a 4K->8K frame (a new ShardedUpscaler a call, its plans built); "
+              f"{'identical' if torch.equal(got, want) else 'DIFFERS'} to upscale() on one card",
+              flush=True)
+        if not torch.equal(got, want) or n != {"fused_resample_fp32": 2 * cards}:
+            raise AssertionError(f"upscale(mesh=): launches {n} or bytes differ")
+
+    def y4m_on_mesh() -> None:
+        rng = np.random.default_rng(32)
+        ch, cw = FRAME[0] // 2, FRAME[1] // 2
+        with tempfile.TemporaryDirectory() as tmp:
+            src = f"{tmp}/in.y4m"
+            with y4m.Y4MWriter(src, y4m.Y4MHeader(FRAME[1], FRAME[0], fps=(24, 1),
+                                                   colorspace="420jpeg")) as writer:
+                for _ in range(8):
+                    writer.write(tuple(rng.integers(0, 256, s, dtype=np.uint8)
+                                       for s in (FRAME, (ch, cw), (ch, cw))))
+            t0 = time.perf_counter()
+            lanczos_torch.upscale_y4m(src, f"{tmp}/one.y4m", scale=(2, 1))
+            t1 = time.perf_counter()
+            lanczos_torch.upscale_y4m(src, f"{tmp}/mesh.y4m", scale=(2, 1), mesh=rows_mesh)
+            t2 = time.perf_counter()
+            with open(f"{tmp}/one.y4m", "rb") as f, open(f"{tmp}/mesh.y4m", "rb") as g:
+                same = f.read() == g.read()
+        print(f"  upscale_y4m(mesh=(1, {cards})): 8 frames 4:2:0 4K->8K, {t2 - t1:.2f} s wall "
+              f"(one card {t1 - t0:.2f} s); the file {'identical' if same else 'DIFFERS'}",
+              flush=True)
+        if not same:
+            raise AssertionError("upscale_y4m(mesh=) wrote other bytes than one card")
+
+    def dryrun() -> None:
+        reset_counts()
+        dryrun_multichip(cards, devs)
+        print(f"  dryrun_multichip({cards}, {devs}): launches {read_counts()}", flush=True)
+
+    step("upscale(mesh=)", upscale_on_mesh)
+    step("upscale_y4m(mesh=)", y4m_on_mesh)
+    step("entry.dryrun_multichip", dryrun)
+    torch.cuda.empty_cache()
+    for example in ("03_sharded_mesh.py", "06_sharded_video_stream.py"):
+        name = f"examples_torch/{example} --n {cards}"
+        code, _ = run_echoed([f"examples_torch/{example}", "--n", str(cards)], name, 300)
+        print(f"  {name}: {'passed' if code == 0 else 'FAILED'}", flush=True)
+        if code:
+            failed.append(name)
+    suite = ["--mesh", str(cards), "--devices", str(cards), "--frames", "16"]
+    code, rows = run_echoed(["-m", "lanczos_torch.tools.bench_suite", *suite],
+                            "bench_suite " + " ".join(suite), 600)
+    mesh_rows = [r for r in rows if "mesh" in r["metric"]]
+    real = code == 0 and len(mesh_rows) == 2 and all(
+        r["virtual_mesh"] is False and r["value"] is not None for r in mesh_rows) and (
+        mesh_rows[0]["measured_eff"] is not None and mesh_rows[0]["ici_bw"] is not None)
+    print(f"  bench_suite {' '.join(suite)}: mesh and video rows "
+          f"{'on real cards, measured' if real else 'FAILED or virtual'}", flush=True)
+    if not real:
+        failed.append("bench_suite mesh rows")
+    print(f"  phase 32: {time.perf_counter() - t32:.1f} s", flush=True)
+    if failed:
+        raise AssertionError(f"phase 32: {failed} failed")
+
+
 def adopt_orphans() -> None:
     """Make this process the subreaper of every process the run starts
     (Linux): a grandchild whose parent exits is re-parented here, where
@@ -1823,6 +2018,34 @@ def stop_leftovers(out=sys.stdout) -> list:
     return list(running.values())
 
 
+def sharding_only(kind: str, smi: str) -> None:
+    """``--sharding``: phases 32 and 18-23 alone on the main path's frame,
+    each run even where the other failed, then the last line."""
+    import traceback
+
+    import torch
+
+    img = np.random.default_rng(0).integers(0, 256, FRAME + (3,), dtype=np.uint8)
+    x = torch.from_numpy(img).cuda()
+    failed = []
+    for name, fn in (("32", lambda: across_cards(img, smi)),
+                     ("18-23", lambda: sharding(img, x, smi, []))):
+        try:
+            fn()
+        except Exception:
+            traceback.print_exc()
+            failed.append(name)
+            torch.cuda.empty_cache()
+    left = stop_leftovers()
+    print(f"  processes the run left running: {len(left)} (stopped)", flush=True)
+    print(f"  chip_smoke --sharding took {time.perf_counter() - T0:.1f} s", flush=True)
+    if failed:
+        raise SystemExit(f"chip_smoke --sharding: phases {failed} failed")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
+    }}), flush=True)
+
+
 def main() -> None:
     import torch
 
@@ -1851,6 +2074,10 @@ def main() -> None:
     _build.library()
     print(f"  built {_build.library_path().name} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    if SHARDING_ONLY:
+        sharding_only(kind, smi)
+        return
 
     # ---- 3. kernel against plain version, small shapes
     print("== 3. kernel vs plain version, small shapes", flush=True)
@@ -2400,6 +2627,7 @@ def main() -> None:
     constant_planes(smi)
     other_filters(img, smi)
     bench_scripts(smi, kernels)
+    across_cards(img, smi)
 
     left = stop_leftovers()
     print(f"  processes the run left running: {len(left)} (stopped)", flush=True)
@@ -2410,7 +2638,11 @@ def main() -> None:
     }}), flush=True)
 
 
+SHARDING_ONLY = sys.argv[1:] == ["--sharding"]
+
 if __name__ == "__main__":
+    if sys.argv[1:] not in ([], ["--sharding"]):
+        raise SystemExit("usage: python3 chip_smoke.py [--sharding]")
     adopt_orphans()
     try:
         main()

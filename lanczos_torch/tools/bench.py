@@ -215,21 +215,27 @@ def queued_ms(fn: Callable, inputs: list, iters: int) -> list:
 
 def wall_ms(fn: Callable, inputs: list, iters: int, dev: torch.device) -> Optional[list]:
     """:func:`device_ms` on the host clock (the caller has warmed ``fn``
-    up), each repetition ending in ``torch.cuda.synchronize()``: for calls
-    on host frames whose host loop is part of what they cost (streaming,
-    video).  None on the CPU."""
+    up), each repetition ending with every card synchronized: for calls on
+    host frames whose host loop is part of what they cost (streaming, video)
+    and for meshes over several cards.  None on the CPU."""
     if dev.type != "cuda":
         return None
     cyc = itertools.cycle(inputs)
     out = []
     for _ in range(REPS):
-        torch.cuda.synchronize()
+        sync_cards()
         t0 = time.perf_counter()
         for _ in range(iters):
             fn(next(cyc))
-        torch.cuda.synchronize()
+        sync_cards()
         out.append((time.perf_counter() - t0) / iters * 1e3)
     return sorted(out)
+
+
+def sync_cards() -> None:
+    """Wait for every visible card (a sharded call spans all of them)."""
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
 
 
 def launched_since(before: dict) -> dict:

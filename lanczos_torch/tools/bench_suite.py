@@ -348,14 +348,18 @@ class Suite:
         before = launch_counts()
         check(name, sh(xs[0]), want, EXACT)
         del want
-        msm = device_ms(sh, xs, args.iters)
+        # events see one card's stream: a mesh over several cards is timed on
+        # the host clock between synchronizing every card
+        on_events = virtual or cards < 2
+        msm = device_ms(sh, xs, args.iters) if on_events else wall_ms(sh, xs, args.iters, dev)
         launched = launched_since(before)
         route = sharded_route(sh, torch.device(positions[0]))
         expect_launched(name, route, launched, dev)
         halo = sh.halo_spec()
         row = {"metric": name, "value": None, "unit": "Mpix/s", "vs_baseline": None,
                "measured_eff": None, "model_eff": None, "virtual_mesh": virtual,
-               "band_ms": band(msm), "kernels": route, "launches": launched,
+               "band_ms": band(msm), "clock": "events" if on_events else "wall",
+               "ici_bw": None, "kernels": route, "launches": launched,
                "halo_bytes": halo["bytes"],
                "positions": n_dev, "shape": [[ih, iw], [oh, ow]], "batch": D}
         model = None
@@ -366,6 +370,7 @@ class Suite:
             model_kw = dict(halo_bytes=halo["bytes"])
             if not virtual and R >= 2:
                 model_kw["ici_bw"] = multihost.measure_ici_bw(mesh, "rows")
+                row["ici_bw"] = round(model_kw["ici_bw"] / 1e9, 3)  # GB/s a direction
             model = multihost.ici_halo_model(cfg, R, dt1, **model_kw)
             row.update(value=round(total, 1), vs_baseline=None if virtual else round(eff, 4),
                        measured_eff=round(eff, 4), model_eff=round(model["efficiency"], 4))

@@ -27,6 +27,16 @@ from lanczos_tpu.io import write_y4m  # noqa: E402
 from lanczos_torch.cli import main as pmain  # noqa: E402
 from lanczos_torch.io import read_image  # noqa: E402
 
+from test_torch_jax_codecs import whole_native_lib  # noqa: E402
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_codecs_whole():
+    """The reference's codec library whole before this module's first
+    comparison (``tests/test_torch_jax_codecs.py``)."""
+    whole_native_lib()
+
+
 REPO = pathlib.Path(__file__).resolve().parents[1]
 DATA = REPO / "tests" / "data"
 LIMITS = {"fp32": (1, 0.01), "bf16": (3, 0.50), "exact": (0, 0.0)}

@@ -25,6 +25,16 @@ from lanczos_torch import entry as pentry  # noqa: E402
 from lanczos_torch.io import read_image, read_y4m  # noqa: E402
 from lanczos_torch.models.upscaler import Upscaler  # noqa: E402
 
+from test_torch_jax_codecs import whole_native_lib  # noqa: E402
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_codecs_whole():
+    """The reference's codec library whole before this module's first
+    comparison (``tests/test_torch_jax_codecs.py``)."""
+    whole_native_lib()
+
+
 REPO = pathlib.Path(__file__).resolve().parents[1]
 EXAMPLES = REPO / "examples_torch"
 

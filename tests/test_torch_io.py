@@ -29,6 +29,16 @@ from lanczos_tpu.io import jpeg as tjpeg  # noqa: E402
 import lanczos_torch.io as pio  # noqa: E402
 from lanczos_torch.io import _native, formats as pformats, jpeg as pjpeg, png as ppng  # noqa: E402
 
+from test_torch_jax_codecs import whole_native_lib  # noqa: E402
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_codecs_whole():
+    """The reference's codec library whole before this module's first
+    comparison (``tests/test_torch_jax_codecs.py``)."""
+    whole_native_lib()
+
+
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
 

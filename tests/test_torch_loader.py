@@ -23,6 +23,16 @@ import lanczos_torch  # noqa: E402
 from lanczos_torch.io import read_image  # noqa: E402
 from lanczos_torch.io.loader import FrameLoader, FrameWriter  # noqa: E402
 
+from test_torch_jax_codecs import whole_native_lib  # noqa: E402
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_codecs_whole():
+    """The reference's codec library whole before this module's first
+    comparison (``tests/test_torch_jax_codecs.py``)."""
+    whole_native_lib()
+
+
 EXTS = ["png", "jpg", "bmp", "tga", "ppm", "gif"]
 
 
