@@ -1,8 +1,7 @@
-"""Smoke test of the PyTorch/CUDA port (``lanczos_torch``) on one GPU, or on
+"""Smoke test of the PyTorch/CUDA port (``lanczos_torch``) on one GPU, and on
 every visible GPU for the sharded paths.
 
-    python3 chip_smoke.py               # every phase; needs one card
-    python3 chip_smoke.py --sharding    # phases 1, 2, 32 and 18-23 alone
+    python3 chip_smoke.py
 
 Phases, each printing as it goes; any failure raises and the exit code is
 not 0:
@@ -106,7 +105,9 @@ not 0:
    same path on one device;
 20. ``ShardedStreamingUpscaler`` (R = 4, ``chunk_rows=1024``) on the
    17280×3840 frame, byte-equal to ``StreamingUpscaler``; its wall time
-   into page-locked memory and the peak device memory of each card;
+   into page-locked memory (8 calls, each between synchronizing every
+   card: the median and band of the last 7, and all 8 in order) and the
+   peak device memory of each card;
 21. ``VideoUpscaler(mesh=(2, 2))`` on 16 4K frames, byte-equal to
    ``Upscaler`` a frame;
 22. a one-rank NCCL process group: ``Mesh.distributed`` running the fused
@@ -181,10 +182,10 @@ not 0:
    the fused kernels' launches in the rows' checked and timed calls (the
    rows' ``launches``) as ``bench_launches``.
 32. across cards, where two or more are visible (on one card it prints
-   that it did not run): the peer access matrix; ``python -m
-   lanczos_torch.tools.multicard`` as processes, ``--local`` (one process
-   over the cards on every (data, rows) mesh shape, every case byte-equal
-   to one card, with frame, halo, ring and video times), ``--ranks 2``,
+   that it did not run): ``python -m lanczos_torch.tools.multicard`` as
+   processes, ``--local`` (the peer access matrix and copy rates, then one
+   process over the cards on every (data, rows) mesh shape, every case
+   byte-equal to one card, with frame, halo, ring and video times), ``--ranks 2``,
    ``--ranks N`` and ``--ranks 1`` (NCCL ranks, one a card);
    ``upscale(mesh=)`` on (1, N) with its launches and ``upscale_y4m(mesh=)``,
    each byte-equal to one card; ``dryrun_multichip(N, cuda:0..N-1)``;
@@ -193,7 +194,7 @@ not 0:
    (``virtual_mesh`` false, ``measured_eff`` and ``ici_bw`` set).  Every
    step runs; the phase fails at its end if one failed.
 
-The host references run on threads.  Phases 24, 27 and 31 start processes
+The host references run on threads.  Phases 24, 27, 31 and 32 start processes
 (the CLI, the JPEG encoder, the examples, the benchmark scripts) and wait
 for each.  The run
 makes itself the subreaper of whatever it starts, and at its end, and on
@@ -237,9 +238,10 @@ import numpy as np
 
 # the H100's peak rates (NVIDIA's data sheet, SXM at 700 W: SIMT fp32 and
 # device memory), the kernels' bound and the float64 reference
+from lanczos_torch.parallel.mesh import spread  # positions over the visible cards
 from lanczos_torch.ref.gather import gather_f64
-from lanczos_torch.tools.bench import sync_cards  # every card: a sharded call spans them
 from lanczos_torch.utils.profiling import FP32_PEAK_TFLOPS, HBM_TBPS, bound_of, kernel_bound
+from lanczos_torch.utils.timing import sync_cards  # every card: a sharded call spans them
 
 LIMITS = {"fp32": (1, 0.01), "bf16": (3, 0.50), "quant": (2, 0.01), "exact": (0, 0.0),
           "float": (1e-3, 1.0), "1 LSB": (1, 1.0), "2 LSB": (2, 1.0), "3 LSB": (3, 1.0)}
@@ -249,13 +251,6 @@ FRAME = (2160, 3840)  # the main path's input, 4K; output 2x each way
 # a rational scale (563/540 by 667/640) only the block path takes
 BLOCK_CASE = ((1080, 1920), (1126, 2001))
 T0 = time.perf_counter()
-
-
-def spread(n: int, cards: int) -> list:
-    """``n`` mesh positions over ``cards`` CUDA cards, position i on card i mod
-    cards: on one card all of them share it, on several every rows ring
-    crosses between cards."""
-    return [f"cuda:{i % max(1, cards)}" for i in range(n)]
 
 
 def compare(name: str, got, want, precision: str) -> tuple[int, float]:
@@ -1089,10 +1084,15 @@ def sharding(img: np.ndarray, x, smi: str, kernels: list) -> None:
     ring = sorted({str(d) for d in ssm._ring})
     for d in ring:
         torch.cuda.reset_peak_memory_stats(d)
-    ms = wall_ms(lambda: ssm(tall), iters=2, warmup=1)
+    # each call on its own between synchronizing every card: the first one
+    # apart, the median and band of the rest
+    calls = [wall_ms(lambda: ssm(tall), iters=1, warmup=0) for _ in range(8)]
+    band = sorted(calls[1:])
     peaks = ", ".join(f"{d} {torch.cuda.max_memory_allocated(d) / 2**30:.3f}" for d in ring)
-    print(f"  ssm(tall) into page-locked memory: {ms:.1f} ms wall a frame ({TALL[0]}x{TALL[1]}x3 "
-          f"-> {2 * TALL[0]}x{2 * TALL[1]}x3); peak device memory, GiB: {peaks} [{smi}]",
+    print(f"  ssm(tall) into page-locked memory, ms wall a frame ({TALL[0]}x{TALL[1]}x3 -> "
+          f"{2 * TALL[0]}x{2 * TALL[1]}x3): median {band[len(band) // 2]:.1f} of {len(band)} "
+          f"calls after the first, band {band[0]:.1f}-{band[-1]:.1f}; in call order "
+          f"{', '.join(f'{t:.1f}' for t in calls)}; peak device memory, GiB: {peaks} [{smi}]",
           flush=True)
 
     # ---- 21. video on a mesh
@@ -1243,14 +1243,14 @@ def start(cmd: list) -> subprocess.Popen:
 
 
 def finish(proc: subprocess.Popen, name: str, timeout: float = 300, echo: bool = False) -> str:
-    """``proc``'s standard output; raises, with the end of its errors, if it
-    failed; with ``echo``, prints its errors' lines first."""
+    """``proc``'s standard output; raises, with the end of its output and of
+    its errors, if it failed; with ``echo``, prints its errors' lines first."""
     out, err = proc.communicate(timeout=timeout)
     if echo:
         for line in err.splitlines():
             print(f"  {line}", flush=True)
     if proc.returncode != 0:
-        raise AssertionError(f"{name} exited {proc.returncode}:\n{err[-3000:]}")
+        raise AssertionError(f"{name} exited {proc.returncode}:\n{out[-3000:]}\n{err[-3000:]}")
     return out
 
 
@@ -1821,25 +1821,6 @@ def bench_scripts(smi: str, kernels: list) -> None:
             k["bench_launches"] = launches.get(k["name"], 0)
 
 
-def run_echoed(args: list, name: str, timeout: float) -> tuple:
-    """``python <args>`` as a process of its own: ``(exit code, its JSON lines
-    parsed)``, every line of its output and the end of its errors echoed."""
-    proc = start(args)
-    try:
-        out, err = proc.communicate(timeout=timeout)
-    except subprocess.TimeoutExpired:
-        proc.kill()
-        out, err = proc.communicate()
-        err += f"\n{name}: killed after {timeout} s"
-    for line in out.splitlines():
-        print(f"  {line}", flush=True)
-    if proc.returncode != 0:
-        print(f"  {name} exited {proc.returncode}; the end of its errors:", flush=True)
-        for line in err[-4000:].splitlines():
-            print(f"    {line}", flush=True)
-    return proc.returncode, [json.loads(v) for v in out.splitlines() if v.startswith("{")]
-
-
 def across_cards(img: np.ndarray, smi: str) -> None:
     """Phase 32: the sharded paths over every visible card, when there are
     two or more: ``tools/multicard.py`` in both forms (one process over
@@ -1864,23 +1845,8 @@ def across_cards(img: np.ndarray, smi: str) -> None:
     t32 = time.perf_counter()
     devs = spread(cards, cards)
     print(f"== 32. the sharded paths across {cards} cards, {devs} [{smi}]", flush=True)
-    peers = [[None if i == j else bool(torch.cuda.can_device_access_peer(i, j))
-              for j in range(cards)] for i in range(cards)]
-    print(f"  peer access, row i: can cuda:i read cuda:j directly: {json.dumps(peers)}",
-          flush=True)
     torch.cuda.empty_cache()
     failed = []
-    forms = [["--local", "--ranks", str(cards)], ["--ranks", "2"], ["--ranks", str(cards)],
-             ["--ranks", "1"]]
-    for form in forms[:2] + forms[2 if cards > 2 else 3:]:
-        name = "multicard " + " ".join(form)
-        t0 = time.perf_counter()
-        code, lines = run_echoed(["-m", "lanczos_torch.tools.multicard", *form], name, 400)
-        ok = code == 0 and bool(lines) and lines[-1].get("ok") is True
-        print(f"  {name}: {'passed' if ok else 'FAILED'} in {time.perf_counter() - t0:.1f} s",
-              flush=True)
-        if not ok:
-            failed.append(name)
 
     def step(name: str, fn) -> None:
         t0 = time.perf_counter()
@@ -1890,6 +1856,18 @@ def across_cards(img: np.ndarray, smi: str) -> None:
         except Exception as e:  # the phase fails at its end; the next step still runs
             print(f"  {name}: FAILED: {type(e).__name__}: {e}", flush=True)
             failed.append(name)
+
+    def echoed(args: list, name: str, timeout: float) -> str:
+        out = finish(start(args), name, timeout)
+        print(out, end="", flush=True)
+        return out
+
+    # multicard --local prints the peer access matrix; each form exits 1 on a difference
+    forms = [["--local", "--ranks", str(cards)], ["--ranks", "2"], ["--ranks", str(cards)],
+             ["--ranks", "1"]]
+    for form in forms[:2] + forms[2 if cards > 2 else 3:]:
+        name = "multicard " + " ".join(form)
+        step(name, lambda: echoed(["-m", "lanczos_torch.tools.multicard", *form], name, 400))
 
     rows_mesh = Mesh.local(devs, (1, cards))
     x1 = torch.from_numpy(img[None]).cuda()
@@ -1943,21 +1921,21 @@ def across_cards(img: np.ndarray, smi: str) -> None:
     torch.cuda.empty_cache()
     for example in ("03_sharded_mesh.py", "06_sharded_video_stream.py"):
         name = f"examples_torch/{example} --n {cards}"
-        code, _ = run_echoed([f"examples_torch/{example}", "--n", str(cards)], name, 300)
-        print(f"  {name}: {'passed' if code == 0 else 'FAILED'}", flush=True)
-        if code:
-            failed.append(name)
+        step(name, lambda: echoed([f"examples_torch/{example}", "--n", str(cards)], name, 300))
     suite = ["--mesh", str(cards), "--devices", str(cards), "--frames", "16"]
-    code, rows = run_echoed(["-m", "lanczos_torch.tools.bench_suite", *suite],
-                            "bench_suite " + " ".join(suite), 600)
-    mesh_rows = [r for r in rows if "mesh" in r["metric"]]
-    real = code == 0 and len(mesh_rows) == 2 and all(
-        r["virtual_mesh"] is False and r["value"] is not None for r in mesh_rows) and (
-        mesh_rows[0]["measured_eff"] is not None and mesh_rows[0]["ici_bw"] is not None)
-    print(f"  bench_suite {' '.join(suite)}: mesh and video rows "
-          f"{'on real cards, measured' if real else 'FAILED or virtual'}", flush=True)
-    if not real:
-        failed.append("bench_suite mesh rows")
+
+    def suite_rows() -> None:
+        name = "bench_suite " + " ".join(suite)
+        out = echoed(["-m", "lanczos_torch.tools.bench_suite", *suite], name, 600)
+        rows = [json.loads(v) for v in out.splitlines() if v.startswith("{")]
+        mesh_rows = [r for r in rows if "mesh" in r["metric"]]
+        if not (len(mesh_rows) == 2 and all(
+                r["virtual_mesh"] is False and r["value"] is not None for r in mesh_rows) and (
+                mesh_rows[0]["measured_eff"] is not None and mesh_rows[0]["ici_bw"] is not None)):
+            raise AssertionError("its mesh and video rows are virtual or unmeasured")
+        print(f"  {name}: mesh and video rows on real cards, measured", flush=True)
+
+    step("bench_suite mesh rows", suite_rows)
     print(f"  phase 32: {time.perf_counter() - t32:.1f} s", flush=True)
     if failed:
         raise AssertionError(f"phase 32: {failed} failed")
@@ -2018,34 +1996,6 @@ def stop_leftovers(out=sys.stdout) -> list:
     return list(running.values())
 
 
-def sharding_only(kind: str, smi: str) -> None:
-    """``--sharding``: phases 32 and 18-23 alone on the main path's frame,
-    each run even where the other failed, then the last line."""
-    import traceback
-
-    import torch
-
-    img = np.random.default_rng(0).integers(0, 256, FRAME + (3,), dtype=np.uint8)
-    x = torch.from_numpy(img).cuda()
-    failed = []
-    for name, fn in (("32", lambda: across_cards(img, smi)),
-                     ("18-23", lambda: sharding(img, x, smi, []))):
-        try:
-            fn()
-        except Exception:
-            traceback.print_exc()
-            failed.append(name)
-            torch.cuda.empty_cache()
-    left = stop_leftovers()
-    print(f"  processes the run left running: {len(left)} (stopped)", flush=True)
-    print(f"  chip_smoke --sharding took {time.perf_counter() - T0:.1f} s", flush=True)
-    if failed:
-        raise SystemExit(f"chip_smoke --sharding: phases {failed} failed")
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
-    }}), flush=True)
-
-
 def main() -> None:
     import torch
 
@@ -2074,10 +2024,6 @@ def main() -> None:
     _build.library()
     print(f"  built {_build.library_path().name} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
-
-    if SHARDING_ONLY:
-        sharding_only(kind, smi)
-        return
 
     # ---- 3. kernel against plain version, small shapes
     print("== 3. kernel vs plain version, small shapes", flush=True)
@@ -2638,11 +2584,7 @@ def main() -> None:
     }}), flush=True)
 
 
-SHARDING_ONLY = sys.argv[1:] == ["--sharding"]
-
 if __name__ == "__main__":
-    if sys.argv[1:] not in ([], ["--sharding"]):
-        raise SystemExit("usage: python3 chip_smoke.py [--sharding]")
     adopt_orphans()
     try:
         main()

@@ -42,6 +42,13 @@ def choose_mesh_shape(n_devices: int) -> Tuple[int, int]:
     return n_devices, 1
 
 
+def spread(n: int, cards: int) -> list:
+    """``n`` mesh positions over ``cards`` CUDA cards, position i on card i mod
+    cards: on one card all of them share it, on several every rows ring
+    crosses between cards."""
+    return [f"cuda:{i % max(1, cards)}" for i in range(n)]
+
+
 def _device(d) -> torch.device:
     """``d`` as a ``torch.device``, a CUDA device with its index."""
     d = torch.device(d)

@@ -76,6 +76,7 @@ import numpy as np
 import torch
 
 from lanczos_torch.tools.hwcert import frac_limit, launch_counts, nvidia_smi, tolerance
+from lanczos_torch.utils.timing import sync_cards
 
 FRAME, OUT, A, BATCH = (2160, 3840), (4320, 7680), 3, 4
 SMOKE = (72, 128), (144, 256)  # the CPU's shape (no card: the plain versions)
@@ -230,12 +231,6 @@ def wall_ms(fn: Callable, inputs: list, iters: int, dev: torch.device) -> Option
         sync_cards()
         out.append((time.perf_counter() - t0) / iters * 1e3)
     return sorted(out)
-
-
-def sync_cards() -> None:
-    """Wait for every visible card (a sharded call spans all of them)."""
-    for i in range(torch.cuda.device_count()):
-        torch.cuda.synchronize(i)
 
 
 def launched_since(before: dict) -> dict:

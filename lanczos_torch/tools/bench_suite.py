@@ -321,14 +321,14 @@ class Suite:
         ``--devices`` positions."""
         from lanczos_torch.models.upscaler import Upscaler
         from lanczos_torch.parallel import multihost
-        from lanczos_torch.parallel.mesh import Mesh
+        from lanczos_torch.parallel.mesh import Mesh, spread
         from lanczos_torch.parallel.sharded import ShardedUpscaler
 
         args, dev = self.args, self.dev
         R, n_dev = args.mesh, args.devices
         D = n_dev // R
         cards = torch.cuda.device_count() if self.on_card else 0
-        positions = [f"cuda:{i % cards}" for i in range(n_dev)] if cards else ["cpu"] * n_dev
+        positions = spread(n_dev, cards) if cards else ["cpu"] * n_dev
         # positions that repeat on a card (or the CPU's) share it: the ratio
         # of their times to one device's is no scaling measurement
         virtual = n_dev > cards

@@ -16,12 +16,15 @@ channel groups off, a batch of 4 frames on the data axis) runs on D frames
 the gathered frame to the whole.  Then, on each mesh: the wall time of a
 sharded frame (host clock around ten calls between synchronizing every
 card, against one card's ``Upscaler`` on the same frames), of the halo
-exchange alone, the ring bandwidth (``measure_ici_bw``, 8 MiB a hop,
-where the rows axis spans two cards or more) and 16 frames of video
-through ``VideoUpscaler(mesh=)``, each frame identical to one card's; and
-one frame sharded by rows over 1, 2, ... N of the cards.  The card-to-card
-peer access matrix is printed first.  One JSON line a mesh, a summary, and
-a last JSON line with ``ok``.
+exchange alone, the ring bandwidth (``measure_ici_bw``, 8 and 256 MiB a
+hop, where the rows axis spans two cards or more) and 16 frames of video
+through ``VideoUpscaler(mesh=)`` (frames/s, the median of 5 calls and
+their band), each frame identical to one card's; and one frame sharded by
+rows over 1, 2, ... N of the cards.  First come the card-to-card peer
+access matrix and the rate of a 256 MiB copy between every pair (events
+on the source card): an NVLink pair reads hundreds of GB/s, PCIe or a
+copy staged through the host tens.  One JSON line a mesh, a summary, and
+a last JSON line with ``ok`` and both matrices.
 
 Without ``--local``, ``--ranks`` processes under ``torch.distributed``
 (NCCL between CUDA ranks, gloo between CPU ranks), rank ``r`` on card
@@ -55,6 +58,8 @@ from pathlib import Path
 
 import numpy as np
 
+from lanczos_torch.utils.timing import sync_cards
+
 CASES = (  # name, profile, overrides, sharded backend, single-device backend
     ("fused fp32", "precise", {"a": 3}, "mxu", "auto"),
     ("fused bf16", "precise", {"a": 3, "precision": "bf16"}, "mxu", "auto"),
@@ -74,7 +79,8 @@ LOCAL_CASES = tuple(c + ({},) for c in CASES) + (
      "xla", {"overlap": False}),
     ("fused fp32, batch of 4", "precise", {"a": 3}, "mxu", "auto", {"batch": 4}),
 )
-VIDEO_FRAMES = 16
+VIDEO_FRAMES, VIDEO_REPS = 16, 5
+COPY_BYTES = 256 << 20  # a copy between two cards, and the ring's longest hop
 
 
 def splits(n: int) -> list:
@@ -89,6 +95,32 @@ def peer_access(n: int) -> list:
 
     return [[None if i == j else bool(torch.cuda.can_device_access_peer(i, j))
              for j in range(n)] for i in range(n)]
+
+
+def copy_rates(n: int, nbytes: int = COPY_BYTES, reps: int = 5) -> list:
+    """``[i][j]``: GB/s of an ``nbytes`` copy from cuda:i to cuda:j (None on
+    the diagonal), timed by events on cuda:i, whose current stream carries
+    the copy: an NVLink pair reads hundreds, PCIe or a copy staged through
+    the host tens."""
+    import torch
+
+    bufs = [torch.empty(nbytes, dtype=torch.uint8, device=f"cuda:{i}") for i in range(n)]
+    rates = [[None] * n for _ in range(n)]
+    for i in range(n):
+        with torch.cuda.device(i):
+            for j in range(n):
+                if i == j:
+                    continue
+                bufs[j].copy_(bufs[i])
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                sync_cards()
+                start.record()
+                for _ in range(reps):
+                    bufs[j].copy_(bufs[i])
+                end.record()
+                sync_cards()
+                rates[i][j] = round(nbytes * reps / (start.elapsed_time(end) * 1e-3) / 1e9, 1)
+    return rates
 
 
 def local_main(n: int, shape: tuple, cpu: bool) -> tuple:
@@ -106,20 +138,17 @@ def local_main(n: int, shape: tuple, cpu: bool) -> tuple:
     cards = [torch.device("cpu")] * n if cpu else [torch.device("cuda", i) for i in range(n)]
     first, iters = cards[0], 2 if cpu else 10
 
-    def sync() -> None:
-        for d in set(cards):
-            if d.type == "cuda":
-                torch.cuda.synchronize(d)
-
-    def wall_ms(fn, reps: int = iters) -> float:
-        """Host ms a call of ``fn`` after one untimed call, every card
-        synchronized before and after (events see one card's stream only)."""
-        fn()
-        sync()
+    def wall_ms(fn, reps: int = iters, warm: bool = True) -> float:
+        """Host ms a call of ``fn``, after one untimed call unless ``warm`` is
+        off, every card synchronized before and after (events see one card's
+        stream only)."""
+        if warm:
+            fn()
+        sync_cards()
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
-        sync()
+        sync_cards()
         return (time.perf_counter() - t0) * 1e3 / reps
 
     rng = np.random.default_rng(0)
@@ -142,7 +171,7 @@ def local_main(n: int, shape: tuple, cpu: bool) -> tuple:
                                                    overlap=opt.get("overlap", True))
                 before = dict(rc.launches)
                 parts = sh.shards(img)
-                sync()
+                sync_cards()
                 launched = {k: c - before[k] for k, c in rc.launches.items() if c != before[k]}
                 # the fused kernel launches once a position (twice with channel
                 # groups); its plain version on the CPU counts nothing
@@ -169,21 +198,25 @@ def local_main(n: int, shape: tuple, cpu: bool) -> tuple:
             res["shards_ms"] = wall_ms(lambda: sh.shards(x))  # without the gather
             res["one_card_ms"] = wall_ms(lambda: one(x))
             res["halo_bytes"] = sh.halo_spec()["bytes"]
-            res["halo_exchange_ms"] = res["ring_bytes_s"] = None
+            res["halo_exchange_ms"] = res["ring_bytes_s"] = res["ring_256mib_bytes_s"] = None
             if R >= 2:
                 blocks = sh._blocks(x)
                 res["halo_exchange_ms"] = wall_ms(
                     lambda: halo_permutes(mesh, blocks, sh.halo)[1](), 20)
-                if mesh.distinct_on("rows", (0, 0)) >= 2:
-                    res["ring_bytes_s"] = multihost.measure_ici_bw(mesh, "rows",
-                                                                   nbytes=8 << 20, iters=10)
+                if mesh.distinct_on("rows", (0, 0)) >= 2:  # 8 MiB, and COPY_BYTES, a hop
+                    res["ring_bytes_s"], res["ring_256mib_bytes_s"] = (
+                        multihost.measure_ici_bw(mesh, "rows", nbytes=nb, iters=10)
+                        for nb in (8 << 20, COPY_BYTES))
             video = host8[np.arange(VIDEO_FRAMES) % 4]
             vu = lanczos_torch.VideoUpscaler(fp32, mesh=mesh, batch=D)
             want = [one(torch.from_numpy(f).to(first)).cpu().numpy() for f in host8]
             got = vu(video)
             res["video_ok"] = all(np.array_equal(got[k], want[k % 4])
                                   for k in range(VIDEO_FRAMES))
-            res["video_frames_s"] = VIDEO_FRAMES / wall_ms(lambda: vu(video), 1) * 1e3
+            fps = sorted(VIDEO_FRAMES / wall_ms(lambda: vu(video), 1, warm=False) * 1e3
+                         for _ in range(VIDEO_REPS))
+            res["video_frames_s"] = fps[len(fps) // 2]  # the median of VIDEO_REPS
+            res["video_frames_s_band"] = [fps[0], fps[-1]]
             del got, want
         except Exception as e:  # recorded; the other meshes still run
             traceback.print_exc()
@@ -208,9 +241,10 @@ def _f(v, digits: int = 4) -> str:
     return "-" if v is None else f"{v:.{digits}f}"
 
 
-def local_report(n: int, cpu: bool, results: list, scaling: dict, peers) -> bool:
-    """Print each mesh's JSON line, the summary and the last line; whether
-    every case held."""
+def local_report(n: int, cpu: bool, results: list, scaling: dict, links: dict) -> bool:
+    """Print each mesh's JSON line, the summary and the last line (with
+    ``links``: the peer access and copy rate matrices); whether every case
+    held."""
     for res in results:
         print(json.dumps(res), flush=True)
     ok = scaling["ok"] and all(
@@ -226,19 +260,23 @@ def local_report(n: int, cpu: bool, results: list, scaling: dict, peers) -> bool
         if "error" in res:
             print(f"  ({D}, {R}) FAILED: {res['error']}", flush=True)
             continue
-        ring = None if res["ring_bytes_s"] is None else res["ring_bytes_s"] / 1e9
+        ring, ring256 = (None if v is None else v / 1e9
+                         for v in (res["ring_bytes_s"], res["ring_256mib_bytes_s"]))
+        lo, hi = res["video_frames_s_band"]
         print(f"  ({D}, {R}) on {n} {where}: {D} frame(s) sharded {_f(res['ms_a_call'])} ms "
               f"wall ({_f(res['shards_ms'])} without the gather), one card "
               f"{_f(res['one_card_ms'])}; halo exchange alone {_f(res['halo_exchange_ms'])} ms "
               f"({res['halo_bytes']} B a direction a shard); ring {_f(ring, 1)} GB/s a "
-              f"direction; video {_f(res['video_frames_s'], 1)} frames/s, "
+              f"direction at 8 MiB a hop, {_f(ring256, 1)} at 256 MiB; video "
+              f"{_f(res['video_frames_s'], 1)} frames/s (median of {VIDEO_REPS}, "
+              f"{_f(lo, 1)}-{_f(hi, 1)}), "
               f"{'every frame identical to one card' if res['video_ok'] else 'frames DIFFER'}",
               flush=True)
     rows = ", ".join(f"R={r} {_f(ms)}" for r, ms in scaling["ms_by_rows"].items())
     print(f"  one frame by rows over the {where}: {rows} ms wall; one card "
           f"{_f(scaling['one_card_ms'])} ms; "
           f"{'identical' if scaling['ok'] else 'DIFFERS or failed'}", flush=True)
-    print(json.dumps({"ok": ok, "form": "local", "cards": n, "peer_access": peers,
+    print(json.dumps({"ok": ok, "form": "local", "cards": n, **links,
                       "one_frame_ms_by_rows": scaling["ms_by_rows"],
                       "one_card_ms": scaling["one_card_ms"]}), flush=True)
     return ok
@@ -326,7 +364,7 @@ def main(argv=None) -> int:
     if args.rank is not None:
         rank_main(args.rank, args.ranks, args.port, shape, args.cpu, Path(args.out))
         return 0
-    peers = None
+    links = {}
     if not args.cpu:
         import torch
 
@@ -337,12 +375,16 @@ def main(argv=None) -> int:
         from lanczos_torch.ops import _build
 
         _build.library()  # build once, before the ranks load it
-        peers = peer_access(args.ranks)
-        print(f"# peer access, row i: can cuda:i read cuda:j directly: {json.dumps(peers)}",
-              flush=True)
+        links["peer_access"] = peer_access(args.ranks)
+        print(f"# peer access, row i: can cuda:i read cuda:j directly: "
+              f"{json.dumps(links['peer_access'])}", flush=True)
+        if args.local and args.ranks > 1:
+            links["copy_gb_s"] = copy_rates(args.ranks)
+            print(f"# a {COPY_BYTES >> 20} MiB copy, row i: cuda:i -> cuda:j, GB/s (events on "
+                  f"cuda:i): {json.dumps(links['copy_gb_s'])}", flush=True)
     if args.local:
         return 0 if local_report(args.ranks, args.cpu, *local_main(args.ranks, shape, args.cpu),
-                                 peers) else 1
+                                 links) else 1
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]

@@ -29,3 +29,10 @@ def cuda_time_ms(fn: Callable, *args, iters: int = 20, warmup: int = 3) -> float
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def sync_cards() -> None:
+    """Wait for every visible card: a sharded call spans all of them, and an
+    event sees one card's stream only (none on the CPU)."""
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)

@@ -23,16 +23,6 @@ import lanczos_torch  # noqa: E402
 from lanczos_torch.ops import c_exact, fixed_point  # noqa: E402
 from lanczos_torch.ref import hls_sim, oracle  # noqa: E402
 
-from test_torch_jax_codecs import whole_native_lib  # noqa: E402
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _reference_codecs_whole():
-    """The reference's codec library whole before this module's first
-    comparison (``tests/test_torch_jax_codecs.py``)."""
-    whole_native_lib()
-
-
 DATA = os.path.join(os.path.dirname(__file__), "data")
 OVERFLOW = "ignore:HLS schedule indexes past:RuntimeWarning"
 

@@ -27,15 +27,7 @@ from lanczos_tpu.io import write_y4m  # noqa: E402
 from lanczos_torch.cli import main as pmain  # noqa: E402
 from lanczos_torch.io import read_image  # noqa: E402
 
-from test_torch_jax_codecs import whole_native_lib  # noqa: E402
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _reference_codecs_whole():
-    """The reference's codec library whole before this module's first
-    comparison (``tests/test_torch_jax_codecs.py``)."""
-    whole_native_lib()
-
+from test_torch_jax_codecs import reference_codecs  # noqa: E402,F401
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 DATA = REPO / "tests" / "data"
@@ -109,6 +101,7 @@ def test_alpha_dropped_and_gray_replicated(tmp_path, capsys, c):
     _within(got, want, "fp32")
 
 
+@pytest.mark.usefixtures("reference_codecs")
 @pytest.mark.parametrize("ext", ["png", "jpg", "bmp", "tga", "ppm", "hdr", "gif"])
 def test_info_lines_equal(tmp_path, capsys, ext):
     img = np.random.default_rng(3).integers(0, 256, (12, 34, 3), dtype=np.uint8)

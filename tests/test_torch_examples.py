@@ -25,15 +25,7 @@ from lanczos_torch import entry as pentry  # noqa: E402
 from lanczos_torch.io import read_image, read_y4m  # noqa: E402
 from lanczos_torch.models.upscaler import Upscaler  # noqa: E402
 
-from test_torch_jax_codecs import whole_native_lib  # noqa: E402
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _reference_codecs_whole():
-    """The reference's codec library whole before this module's first
-    comparison (``tests/test_torch_jax_codecs.py``)."""
-    whole_native_lib()
-
+from test_torch_jax_codecs import reference_codecs  # noqa: E402,F401
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 EXAMPLES = REPO / "examples_torch"
@@ -97,6 +89,7 @@ def test_04_streaming_tall_frame(monkeypatch, capsys):
     assert "-> (256, 96, 3)" in out
 
 
+@pytest.mark.usefixtures("reference_codecs")
 def test_05_gif_animation(tmp_path, monkeypatch, capsys):
     rng = np.random.default_rng(2)
     clip = rng.integers(0, 4, (3, 12, 10, 3), dtype=np.uint8) * 80

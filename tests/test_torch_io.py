@@ -29,15 +29,7 @@ from lanczos_tpu.io import jpeg as tjpeg  # noqa: E402
 import lanczos_torch.io as pio  # noqa: E402
 from lanczos_torch.io import _native, formats as pformats, jpeg as pjpeg, png as ppng  # noqa: E402
 
-from test_torch_jax_codecs import whole_native_lib  # noqa: E402
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _reference_codecs_whole():
-    """The reference's codec library whole before this module's first
-    comparison (``tests/test_torch_jax_codecs.py``)."""
-    whole_native_lib()
-
+from test_torch_jax_codecs import reference_codecs  # noqa: E402,F401
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
@@ -161,6 +153,7 @@ def _same(got, want):
 # ------------------------------------------------------------ decoders
 
 
+@pytest.mark.usefixtures("reference_codecs")
 @pytest.mark.parametrize("name", NAMES)
 def test_decoders_equal_the_originals(name):
     data = CORPUS[name]
@@ -177,6 +170,7 @@ def test_decoders_equal_the_originals(name):
         _same(pformats.decode_hdr(data), tformats.decode_hdr(data))
 
 
+@pytest.mark.usefixtures("reference_codecs")
 @pytest.mark.parametrize("name", NAMES)
 def test_corrupt_and_truncated_inputs_fail_alike(name):
     """The cuts and byte flips of ``tests/test_codec_robustness.py``: each
@@ -197,6 +191,7 @@ def test_corrupt_and_truncated_inputs_fail_alike(name):
         _same(_outcome(pio.probe_image, blob, tga=tga), _outcome(tio.probe_image, blob, tga=tga))
 
 
+@pytest.mark.usefixtures("reference_codecs")
 @pytest.mark.parametrize("blob", [
     b"\x00\x01\x02\x03" * 30, b"P6\n99999999 99999999\n255\n" + bytes(20), b"P6\n0 5\n255\n",
     b"P5 1 1 255", b"P5 #x", b"#?RADIANCE\n\n-Y 2 +X 2\n", b"GIF89a", b"\xff\xd8\xff",
@@ -207,6 +202,7 @@ def test_garbage_fails_alike(blob):
         _same(_outcome(getattr(pio, fn), blob), _outcome(getattr(tio, fn), blob))
 
 
+@pytest.mark.usefixtures("reference_codecs")
 def test_gif_bad_min_code_size_fails_alike():
     data = bytearray(CORPUS["gif_still"])
     pos = 13 + (3 * (2 << (data[10] & 7)) if data[10] & 0x80 else 0)
@@ -236,6 +232,7 @@ def _encoder_cases():
     ]
 
 
+@pytest.mark.usefixtures("reference_codecs")
 @pytest.mark.parametrize("fmt,img,kw", _encoder_cases(),
                          ids=lambda v: v if isinstance(v, str) else None)
 def test_encoders_write_the_originals_bytes(fmt, img, kw):
@@ -298,6 +295,7 @@ def test_convert_channels_refusal_alike():
           _outcome(tio.convert_channels, img[..., :3], 7))
 
 
+@pytest.mark.usefixtures("reference_codecs")
 @pytest.mark.parametrize("ext", ["png", "jpg", "bmp", "tga", "ppm", "pgm", "hdr", "gif"])
 @pytest.mark.parametrize("flip", [False, True])
 def test_files_equal(tmp_path, ext, flip):
@@ -330,6 +328,7 @@ def test_native_codecs_are_built_outside_the_sources():
     assert {"libpngfilter", "libjpegdec", "libgiflzw"} <= built
 
 
+@pytest.mark.usefixtures("reference_codecs")
 @pytest.mark.parametrize("name", [n for n in NAMES if n.startswith(("png", "gif", "psd"))])
 def test_numpy_path_equals_the_native_path(name, monkeypatch):
     """Decoding: the same arrays.  Encoding: the NumPy PNG filter picks

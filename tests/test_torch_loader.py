@@ -23,15 +23,7 @@ import lanczos_torch  # noqa: E402
 from lanczos_torch.io import read_image  # noqa: E402
 from lanczos_torch.io.loader import FrameLoader, FrameWriter  # noqa: E402
 
-from test_torch_jax_codecs import whole_native_lib  # noqa: E402
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _reference_codecs_whole():
-    """The reference's codec library whole before this module's first
-    comparison (``tests/test_torch_jax_codecs.py``)."""
-    whole_native_lib()
-
+from test_torch_jax_codecs import reference_codecs  # noqa: E402,F401
 
 EXTS = ["png", "jpg", "bmp", "tga", "ppm", "gif"]
 
@@ -47,6 +39,7 @@ def _files(tmp_path, n, shape=(12, 10, 3), seed=0):
     return paths
 
 
+@pytest.mark.usefixtures("reference_codecs")
 @pytest.mark.parametrize("workers,prefetch", [(1, 1), (3, 4), (4, 16)])
 def test_loader_order_and_content_equal(tmp_path, workers, prefetch):
     paths = _files(tmp_path, 11)
@@ -58,6 +51,7 @@ def test_loader_order_and_content_equal(tmp_path, workers, prefetch):
         np.testing.assert_array_equal(g, w)
 
 
+@pytest.mark.usefixtures("reference_codecs")
 def test_loader_transform_and_error_equal(tmp_path):
     paths = _files(tmp_path, 3)
     t = lambda im: im[..., :1]  # noqa: E731
@@ -74,6 +68,7 @@ def test_loader_transform_and_error_equal(tmp_path):
     assert errs[0] == errs[1]
 
 
+@pytest.mark.usefixtures("reference_codecs")
 @pytest.mark.parametrize("level", [1, 6, 9])
 def test_writer_bytes_equal(tmp_path, level):
     rng = np.random.default_rng(level)

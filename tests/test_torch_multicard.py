@@ -45,6 +45,7 @@ def test_local_form_on_cpu_positions(n, capsys):
     *meshes, last = _lines(out)
     assert [m["mesh"] for m in meshes] == [list(s) for s in multicard.splits(n)]
     assert last["ok"] is True and last["form"] == "local" and last["cards"] == n
+    assert "peer_access" not in last and "copy_gb_s" not in last  # no cards to link
     assert sorted(last["one_frame_ms_by_rows"]) == sorted(str(r) for _, r in multicard.splits(n))
     names = [c[0] for c in multicard.LOCAL_CASES]
     for m in meshes:
@@ -56,6 +57,9 @@ def test_local_form_on_cpu_positions(n, capsys):
             c[5].get("batch", D) for c in multicard.LOCAL_CASES]
         assert m["cases"]["fused fp32"]["fused"] and not m["cases"]["uint16 (float path)"]["fused"]
         assert m["cases"]["shift"]["shift"] and m["ring_bytes_s"] is None  # one CPU: no ring
+        assert m["ring_256mib_bytes_s"] is None
+        lo, hi = m["video_frames_s_band"]
+        assert 0 < lo <= m["video_frames_s"] <= hi
     assert out.count("every shard identical to the single-device rows on its card") == (
         len(meshes) * len(names))
     assert out.count("every frame identical to one card") == len(meshes)
@@ -134,10 +138,3 @@ def test_local_mesh_frame_within_the_reference_contract():
     want = np.asarray(TpuSharded(tcfg, jax.make_mesh((2, 2), ("data", "rows")))(img))
     d = np.abs(got.astype(np.int32) - want.astype(np.int32))
     assert got.shape == want.shape and d.max() <= 1 and (d > 0).mean() <= 0.01
-
-
-def test_profile_sharded_needs_two_cards(capsys):
-    from lanczos_torch.tools import profile_sharded
-
-    assert profile_sharded.main([]) == 2
-    assert "needs 2 or more CUDA cards" in capsys.readouterr().out

@@ -22,16 +22,6 @@ from lanczos_tpu.models.video import upscale_y4m as tpu_upscale_y4m  # noqa: E40
 import lanczos_torch  # noqa: E402
 from lanczos_torch.io import y4m  # noqa: E402
 
-from test_torch_jax_codecs import whole_native_lib  # noqa: E402
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _reference_codecs_whole():
-    """The reference's codec library whole before this module's first
-    comparison (``tests/test_torch_jax_codecs.py``)."""
-    whole_native_lib()
-
-
 COLORSPACES = ["420jpeg", "420mpeg2", "420paldv", "422", "444", "mono", "420p10"]
 _DIV = {"420": (2, 2), "422": (1, 2), "444": (1, 1)}
 
