@@ -46,6 +46,8 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from lanczos_torch.utils.tracing import LANE_HOST_COPY, LANE_SUBMIT, LANE_WAIT, span
+
 
 def require_device(device) -> torch.device:
     """``device`` as a ``torch.device``; raises where it names CUDA and
@@ -72,11 +74,12 @@ def torch_dtype(dtype) -> torch.dtype:
 
 def host_copy(dst: np.ndarray, src: np.ndarray) -> None:
     """``dst[...] = src`` for host arrays, on PyTorch's intra-op threads."""
-    src = np.ascontiguousarray(src)
-    if not src.flags.writeable:  # torch.from_numpy warns on a read-only array
-        dst[...] = src
-        return
-    torch.from_numpy(dst).copy_(torch.from_numpy(src))
+    with span(LANE_HOST_COPY):
+        src = np.ascontiguousarray(src)
+        if not src.flags.writeable:  # torch.from_numpy warns on a read-only array
+            dst[...] = src
+            return
+        torch.from_numpy(dst).copy_(torch.from_numpy(src))
 
 
 @functools.lru_cache(maxsize=None)
@@ -119,33 +122,35 @@ class Lane:
         tensor or a sequence of tensors) and read every result back, into
         ``dests`` (host tensors of the results' shapes) or into new host
         buffers; returns once all of it is enqueued."""
-        if not self.cuda:
-            results = _as_list(fn(*inputs))
-            self._items.append((meta, _deliver(results, dests), None, None))
-            return
-        here = torch.cuda.current_stream(self.device)
-        with torch.cuda.stream(self.up):
-            on_device = [t.to(self.device, non_blocking=True) for t in inputs]
-            uploaded = self.up.record_event()
-        here.wait_event(uploaded)
-        results = [r.contiguous() for r in _as_list(fn(*on_device))]
-        computed = here.record_event()
-        if dests is None:
-            dests = [self.host_empty(r.shape, r.dtype) for r in results]
-        with torch.cuda.stream(self.down):
-            self.down.wait_event(computed)
-            for dst, r in zip(dests, results):
-                dst.copy_(r, non_blocking=True)
-            done = self.down.record_event()
-        # the references keep every block out of its allocator until `done`
-        self._items.append((meta, list(dests), done, (inputs, on_device, results)))
+        with span(LANE_SUBMIT):
+            if not self.cuda:
+                results = _as_list(fn(*inputs))
+                self._items.append((meta, _deliver(results, dests), None, None))
+                return
+            here = torch.cuda.current_stream(self.device)
+            with torch.cuda.stream(self.up):
+                on_device = [t.to(self.device, non_blocking=True) for t in inputs]
+                uploaded = self.up.record_event()
+            here.wait_event(uploaded)
+            results = [r.contiguous() for r in _as_list(fn(*on_device))]
+            computed = here.record_event()
+            if dests is None:
+                dests = [self.host_empty(r.shape, r.dtype) for r in results]
+            with torch.cuda.stream(self.down):
+                self.down.wait_event(computed)
+                for dst, r in zip(dests, results):
+                    dst.copy_(r, non_blocking=True)
+                done = self.down.record_event()
+            # the references keep every block out of its allocator until `done`
+            self._items.append((meta, list(dests), done, (inputs, on_device, results)))
 
     def pop(self) -> tuple:
         """``(meta, [result as a numpy array, ...])`` of the oldest item,
         once its readback has finished."""
         meta, hosts, done, _keep = self._items.popleft()
-        if done is not None:
-            done.synchronize()
+        with span(LANE_WAIT):
+            if done is not None:
+                done.synchronize()
         return meta, [h.numpy() for h in hosts]
 
     def close(self) -> None:

@@ -72,6 +72,7 @@ from lanczos_torch.ops.resample_strided import (
     StridedOps,
     resample_2d_strided,
 )
+from lanczos_torch.utils.tracing import UPSCALE, UPSCALER_CALL, UPSCALER_PLANAR, span
 
 BACKENDS = ("auto", "cuda", "pallas", "shift_xla", "block", "xla", "c_exact", "ref")
 
@@ -265,46 +266,48 @@ class Upscaler:
         cast); uint16 (e.g. from ``io.decode_image_16``) → uint16 via the
         same semantics at 16-bit width; float → float, linear and
         unclipped."""
-        if tuple(img.shape[-3:-1]) != tuple(self.cfg.in_shape):
-            raise ValueError(
-                f"image spatial dims {tuple(img.shape[-3:-1])} != config "
-                f"{self.cfg.in_shape}"
-            )
-        x = _as_tensor(img, self.device)
-        kernels = self.path == "cuda"
-        if x.dtype == torch.uint16:
-            # the backends' integer path quantizes to the uint8 range (the
-            # reference's clamp_to_byte); at 16-bit width run the float
-            # path and apply the same trunc-clip against 65535
-            if self.cfg.precision == Precision.FIXED or self.cfg.c_faithful:
+        with span(UPSCALER_CALL):
+            if tuple(img.shape[-3:-1]) != tuple(self.cfg.in_shape):
                 raise ValueError(
-                    "uint16 input is not defined for the bit-exact uint8 "
-                    "semantics profiles (hls/c_oracle); convert explicitly"
+                    f"image spatial dims {tuple(img.shape[-3:-1])} != config "
+                    f"{self.cfg.in_shape}"
                 )
-            xf = x.to(torch.float32)
-            y = self._float_fallback(xf) if kernels else self._run(xf)
-            return torch.trunc(torch.clamp(y.float(), 0.0, 65535.0)).to(torch.uint16)
-        if kernels and x.dtype != torch.uint8:
-            # the kernels are uint8 → uint8 by design; quantizing a float
-            # input would silently break the float-in/float-out contract
-            return self._float_fallback(x)
-        return self._run(x)
+            x = _as_tensor(img, self.device)
+            kernels = self.path == "cuda"
+            if x.dtype == torch.uint16:
+                # the backends' integer path quantizes to the uint8 range (the
+                # reference's clamp_to_byte); at 16-bit width run the float
+                # path and apply the same trunc-clip against 65535
+                if self.cfg.precision == Precision.FIXED or self.cfg.c_faithful:
+                    raise ValueError(
+                        "uint16 input is not defined for the bit-exact uint8 "
+                        "semantics profiles (hls/c_oracle); convert explicitly"
+                    )
+                xf = x.to(torch.float32)
+                y = self._float_fallback(xf) if kernels else self._run(xf)
+                return torch.trunc(torch.clamp(y.float(), 0.0, 65535.0)).to(torch.uint16)
+            if kernels and x.dtype != torch.uint8:
+                # the kernels are uint8 → uint8 by design; quantizing a float
+                # input would silently break the float-in/float-out contract
+                return self._float_fallback(x)
+            return self._run(x)
 
     def planar(self, img) -> torch.Tensor:
         """Planar path: (C, H, W) or (B, C, H, W) → same rank, without the
         interleaved↔planar transposes on the kernel and strided backends
         (uint8); every other case goes through :meth:`__call__`."""
-        if tuple(img.shape[-2:]) != tuple(self.cfg.in_shape):
-            raise ValueError(
-                f"image spatial dims {tuple(img.shape[-2:])} != config "
-                f"{self.cfg.in_shape}"
-            )
-        x = _as_tensor(img, self.device)
-        if x.dtype == torch.uint8 and self.path == "cuda":
-            return upscale_planar(x, self._ops_for(x.device))
-        if x.dtype == torch.uint8 and self.path == "shift_xla":
-            return resample_2d_strided(x, self._ops_for(x.device), channel_last=False)
-        return self(x.movedim(-3, -1)).movedim(-1, -3)
+        with span(UPSCALER_PLANAR):
+            if tuple(img.shape[-2:]) != tuple(self.cfg.in_shape):
+                raise ValueError(
+                    f"image spatial dims {tuple(img.shape[-2:])} != config "
+                    f"{self.cfg.in_shape}"
+                )
+            x = _as_tensor(img, self.device)
+            if x.dtype == torch.uint8 and self.path == "cuda":
+                return upscale_planar(x, self._ops_for(x.device))
+            if x.dtype == torch.uint8 and self.path == "shift_xla":
+                return resample_2d_strided(x, self._ops_for(x.device), channel_last=False)
+            return self(x.movedim(-3, -1)).movedim(-1, -3)
 
 
 def _device_table_bytes(model: Upscaler) -> int:
@@ -424,17 +427,18 @@ def upscale(
     (B, H, W, C) with B divisible by the data-axis size; ``backend`` one of
     ``"auto"``, ``"mxu"``, ``"gather"``; ``device`` unused: each shard runs
     on its position's device)."""
-    gray2d = getattr(img, "ndim", 0) == 2
-    if gray2d:
-        img = img[..., None]
-    h, w = img.shape[-3], img.shape[-2]
-    cfg = ResampleConfig.from_profile(
-        profile, (h, w), out_shape=out_shape, scale=scale, a=a, **overrides
-    )
-    if mesh is not None:
-        from lanczos_torch.parallel.sharded import ShardedUpscaler
+    with span(UPSCALE):
+        gray2d = getattr(img, "ndim", 0) == 2
+        if gray2d:
+            img = img[..., None]
+        h, w = img.shape[-3], img.shape[-2]
+        cfg = ResampleConfig.from_profile(
+            profile, (h, w), out_shape=out_shape, scale=scale, a=a, **overrides
+        )
+        if mesh is not None:
+            from lanczos_torch.parallel.sharded import ShardedUpscaler
 
-        out = ShardedUpscaler(cfg, mesh, backend=backend)(img)
+            out = ShardedUpscaler(cfg, mesh, backend=backend)(img)
+            return out[..., 0] if gray2d else out
+        out = _cached_upscaler(cfg, backend, device)(img)
         return out[..., 0] if gray2d else out
-    out = _cached_upscaler(cfg, backend, device)(img)
-    return out[..., 0] if gray2d else out

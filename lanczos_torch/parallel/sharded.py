@@ -72,6 +72,7 @@ from lanczos_torch.parallel.mesh import (  # noqa: F401  (choose_mesh_shape: the
     halo_exchange_rows,
     halo_permutes,
 )
+from lanczos_torch.utils.tracing import SHARDED_CALL, span
 
 BACKENDS = ("auto", "mxu", "gather")
 _TILES = ((64, 128), (32, 64), (16, 32))  # fused_plan's ladder
@@ -594,20 +595,21 @@ class ShardedUpscaler:
     def __call__(self, img) -> torch.Tensor:
         """(B, H, W, C) → (B, OH, OW, C): every shard's rows, on the device
         of this process's first position."""
-        out = self.shards(img)
-        if not out:
-            raise ValueError("this process holds no position of the mesh")
-        device = self.mesh.device(self.mesh.local_positions()[0])
-        every = gather(self.mesh, out, device)
-        some = next(iter(every.values()))
-        bl, ol = some.shape[0], self.out_h_local
-        n_data = self.mesh.shape[self.data_axis]
-        y = torch.empty((bl * n_data, ol * self.rows_n) + tuple(some.shape[2:]),
-                        dtype=some.dtype, device=device)
-        for p, part in every.items():
-            d, r = p[self._dk], p[self._rk]
-            y[d * bl : (d + 1) * bl, r * ol : (r + 1) * ol] = part
-        return y
+        with span(SHARDED_CALL):
+            out = self.shards(img)
+            if not out:
+                raise ValueError("this process holds no position of the mesh")
+            device = self.mesh.device(self.mesh.local_positions()[0])
+            every = gather(self.mesh, out, device)
+            some = next(iter(every.values()))
+            bl, ol = some.shape[0], self.out_h_local
+            n_data = self.mesh.shape[self.data_axis]
+            y = torch.empty((bl * n_data, ol * self.rows_n) + tuple(some.shape[2:]),
+                            dtype=some.dtype, device=device)
+            for p, part in every.items():
+                d, r = p[self._dk], p[self._rk]
+                y[d * bl : (d + 1) * bl, r * ol : (r + 1) * ol] = part
+            return y
 
 
 def _same_horizontal(p, q) -> bool:
