@@ -73,7 +73,8 @@ launches = {
     f"fused_resample_{p}{d}{q}": 0
     for p in ("fp32", "bf16") for d in ("", "_dering") for q in ("", "_quant")
 }
-
+# Of those, the launches that ran the pipelined kernel (``ring_shape``).
+pipelined = dict.fromkeys(launches, 0)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -152,10 +153,15 @@ def smem_layout(tile: int, kv: int, cb: int, kh: int) -> dict:
 def _block_width(nh: int, cb_target: int) -> int:
     """Output columns per block: the largest multiple of lcm(N, 4) up to
     ``cb_target``, so interior blocks share one matrix (block starts step
-    by an integral ``cb·D/N``) and rows stay 16-byte aligned; a phase count
-    too large for that gets ``cb_target`` and one matrix per block."""
+    by an integral ``cb·D/N``), and of lcm(N, 4, 16) where one fits, so a
+    block's rows are whole 16-byte chunks (the pipelined kernel's TMA
+    boxes; 96 columns at 3/2); a phase count too large for either gets
+    ``cb_target`` and one matrix per block."""
     unit = nh * 4 // math.gcd(nh, 4)
-    return (cb_target // unit) * unit if unit <= cb_target else cb_target
+    for step in (unit * 16 // math.gcd(unit, 16), unit):
+        if step <= cb_target:
+            return (cb_target // step) * step
+    return cb_target
 
 
 def build_fused_plan(
@@ -577,6 +583,60 @@ def kernel_layout(plan: FusedPlan, precision: Precision) -> dict:
     )
 
 
+RING_STAGES = 4  # the most stages of the pipelined kernel's ring
+RING_STAGED = 2  # output tiles a block of it stages
+# (blocks an SM, shared memory each may take): an H100 SM has 228 KB, of which
+# the card reserves 1 KB a block
+RING_BLOCKS = ((3, 75 * 1024), (2, 113 * 1024), (1, 227 * 1024))
+
+
+def ring_layout(a: dict, dering: bool) -> dict:
+    """Shared memory of one block of the pipelined kernel, as its launcher
+    lays it out (``Ring`` in ``csrc/fused_resample.cu``), from
+    :func:`kernel_layout`'s integer fields: ``stage``, the bytes of one
+    stage of the ring (a tile's uint8 band, its vertical weights, window
+    bases and, for dering, central-tap offsets, and the horizontal ones of
+    its column block; a multiple of 128), and ``fixed``, the rest (the
+    staged output, :data:`RING_STAGED` tiles of four 1024-byte aligned
+    quarters; the fp32 intermediate; the barriers; 1024 bytes to align the
+    base).  A block of ``S`` stages takes ``fixed + S * stage``."""
+    tile_p, cb_p = a["tile_p"], a["cb_p"]
+    tables = 4 * (a["win_v"] * tile_p + a["win_h"] * cb_p) + tile_p + cb_p
+    if dering:
+        tables += 8 * (tile_p + cb_p)
+    quarter = _round_up(tile_p // 4 * a["cb"], 1024)
+    fixed = (1024 + 4 * RING_STAGED * quarter + 4 * a["mw"] * tile_p
+             + RING_STAGES * (2 * 8 + 4))
+    return dict(stage=_round_up(a["kv"] * a["bw"] + tables, 128), fixed=fixed)
+
+
+def ring_shape(a: dict, w: int, oh: int, ow: int, pointers, dering: bool) -> tuple:
+    """``(stages, blocks an SM)`` of the pipelined kernel for one launch,
+    or ``(0, 0)`` where it cannot run and the one-tile-a-block kernel
+    takes the launch: TMA addresses rows of whole 16-byte chunks from
+    16-byte aligned tensors (``W``, ``OW`` and the block width multiples of
+    16, every pointer aligned), boxes of at most 256 a side (the band's
+    ``bw`` bytes by ``kv`` rows, the output's ``cb`` by ``tile / 4``), and
+    the output leaves in quarters of rows 4k + q (``tile`` a multiple of 4,
+    at least 4 output rows; the tables' rows, ``tile_p`` bytes of window
+    bases, are bulk copies of 16-byte multiples).  The most blocks an SM
+    (three, two or one) of which each holds a ring of two stages; as many
+    stages as fit, up to :data:`RING_STAGES`.  A pure function of the
+    launch's geometry, ``a`` being :func:`kernel_layout`'s integer
+    fields."""
+    tile, tile_p, cb = a["tile"], a["tile_p"], a["cb"]
+    if (w % 16 or ow % 16 or cb % 16 or cb > 256 or tile % 4 or tile_p % 16
+            or a["bw"] > 256 or a["kv"] > 256 or oh < 4
+            or any(ptr % 16 for ptr in pointers)):
+        return 0, 0
+    lay = ring_layout(a, dering)
+    for blocks, limit in RING_BLOCKS:
+        stages = min(RING_STAGES, (limit - lay["fixed"]) // lay["stage"])
+        if stages >= 2:
+            return stages, blocks
+    return 0, 0
+
+
 VERTICAL_FIELDS = ("kv", "tile_p", "win_v", "num_tiles")  # what a shard's tables must share
 
 
@@ -840,12 +900,14 @@ def fused_call(ops: FusedOps, x: torch.Tensor, wv: Optional[VerticalTables] = No
     """(NC, H, W) uint8 → (NC, OH, OW) uint8 on ``ops``'s device, through
     the fused kernel.
 
-    A CUDA tensor launches the kernel (or raises); a CPU tensor runs the
-    plain version.  ``wv``, one row shard's :class:`VerticalTables`,
-    replaces the plan's vertical tables (``wv``, ``base_v``, ``starts_v``,
-    ``cv``) in the launch; the horizontal tables and every integer argument
-    stay ``ops``'s, and a table set whose ``kv``, ``tile_p``, ``win_v`` or
-    ``num_tiles`` differ raises."""
+    A CUDA tensor launches the kernel (or raises): the pipelined kernel
+    where :func:`ring_shape` finds it fits the launch, else the
+    one-tile-a-block kernel; a CPU tensor runs the plain version.  ``wv``,
+    one row shard's :class:`VerticalTables`, replaces the plan's vertical
+    tables (``wv``, ``base_v``, ``starts_v``, ``cv``) in the launch; the
+    horizontal tables and every integer argument stay ``ops``'s, and a
+    table set whose ``kv``, ``tile_p``, ``win_v`` or ``num_tiles`` differ
+    raises."""
     if ops.variant != "mxu" or ops.tr_ops is not None:
         raise ValueError(
             f"this config runs {ops.kernel}"
@@ -877,6 +939,8 @@ def fused_call(ops: FusedOps, x: torch.Tensor, wv: Optional[VerticalTables] = No
     if wv is not None:
         t = dict(t, **wv.tensors)
     centers = [t["cv"].data_ptr(), t["ch"].data_ptr()] if cfg.dering else [None, None]
+    pointers = [x.data_ptr(), out.data_ptr(), *(v.data_ptr() for v in t.values())]
+    stages, blocks = ring_shape(a, w, oh, ow, pointers, cfg.dering)
     with torch.cuda.device(x.device):
         code = lib.lanczos_fused_resample(
             x.data_ptr(), out.data_ptr(), t["wv"].data_ptr(), t["wh"].data_ptr(),
@@ -886,11 +950,12 @@ def fused_call(ops: FusedOps, x: torch.Tensor, wv: Optional[VerticalTables] = No
             a["tile_p"], a["kv"], a["cb"], a["cb_p"], a["kh"], a["win_v"], a["win_h"],
             a["bw"], a["mw"], a["stage_w"], a["n_cb"], a["num_tiles"],
             int(cfg.precision == Precision.BF16), int(cfg.dering),
-            int(cfg.intermediate_quantize),
+            int(cfg.intermediate_quantize), stages, blocks,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     _build.check(code)
     launches[ops.kernel] += 1
+    pipelined[ops.kernel] += stages > 0
     return out
 
 

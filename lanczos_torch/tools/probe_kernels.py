@@ -13,23 +13,28 @@ its three full-width shapes (Lanczos-3, uniform noise from
 ``numpy.random.default_rng(0)``).  A probe's output is wrong by design;
 only its time and its registers are read.
 
-``fused`` (linear fp32, and fp32 dering):
+``fused`` (4K→8K linear fp32 and fp32 dering, 1440p→4K linear fp32: the
+2/1 and 3/2 plans of the benchmark's cells), probes of the pipelined kernel:
 
-- the timeline: ``empty`` returns at once (what launching the grid costs),
-  ``loads`` returns after the tables and the band have arrived, ``vertical``
-  after the vertical pass, ``nostore`` skips only the copy of the staged
-  tile to the output;
+- the timeline: ``empty`` returns at once (what launching the persistent
+  grid costs), ``loads`` runs the producer alone (its consumers wait for each
+  stage and hand it back, with no passes and no stores), ``nostore`` skips
+  only the TMA stores of the staged tiles;
 - the products: ``novert``, ``nohoriz`` and ``noboth`` run zero window
   steps (epilogues, barriers, loads and stores stay);
-- occupancy and unrolling: ``blocks3`` lets the compiler take 80 registers
-  (three blocks an SM), ``unroll_h2`` unrolls the horizontal step loop by 2
-  (which spills), ``unroll_v1`` leaves the vertical one rolled.
+- the ring: ``ring1`` and ``ring2`` hold one and two stages (one stage:
+  a tile's loads wait for the previous tile's passes), ``blocks1`` and
+  ``blocks2`` run one and two blocks an SM (consumers at 232 and 96
+  registers), ``staged3`` stages three output tiles a block (two stages),
+  ``tile`` forces the one-tile-a-block kernel on the same launch;
+  ``unroll_h2`` and ``unroll_v4`` unroll the step loops further.
 
 ``shift`` (kernel 2, dering): ``empty``, ``loads``, ``novert``,
 ``nohoriz``, and ``threads256`` (blocks of 256 threads, three an SM).
 
 ``sweep``: the production fused kernel on plans of other row tiles and
-column blocks (``plan_at``).
+column blocks (``plan_at``), at 2/1 and at 3/2, each line with the ring's
+stages and blocks an SM (0 and 0: the one-tile-a-block kernel).
 
 ``phase`` (v1, fp32 and bf16): at 8K→480×270 the streamed design's two
 kernels: ``empty``, ``loads`` (the copies and the walk without the
@@ -73,26 +78,38 @@ from lanczos_torch.tools.ablate_fused import FRAME_IN, card
 
 _NO_STEPS_V = ("for (int s = 0; s < g.win_v; ++s)", "for (int s = 0; s < 0; ++s)")
 _NO_STEPS_H = ("for (int s = 0; s < g.win_h; ++s)", "for (int s = 0; s < 0; ++s)")
-_ENTRY_F = "  extern __shared__ uint4 smem16[];\n  const int tile_p = g.tile_p, bw = g.bw;"
+_ENTRY_F = "  extern __shared__ uint8_t ring_smem[];"
 _ENTRY_S = "  extern __shared__ uint4 smem16[];\n  const int s = S > 0 ? S : g.s"
 _RETURN = "  if (g.H > 0) return;\n"
+_NEVER = "if (g.H < 0) "  # false at run time: the code stays, its work does not run
+_VERT = "      vertical_pass<BF16, DERING, QUANT>(tid, st,"
+_HORIZ = "      horizontal_pass<DERING>(tid, midT,"
+_STORE = "        for (int q = 0; q < 4; ++q)\n          tma_store_3d("
+_NO_STORE = (_STORE, "        for (int q = 0; q < 4 * (g.H < 0); ++q)\n          tma_store_3d(")
+_RING = "const Ring R = ring_layout(g, dering != 0, stages);"
 
 # name -> [(text in the production source, its replacement), ...]
 FUSED_PROBES = {
     "empty": [(_ENTRY_F, _RETURN + _ENTRY_F)],
-    "loads": [("  __syncthreads();\n\n  float acc[8][4];",
-               "  __syncthreads();\n" + _RETURN + "  float acc[8][4];")],
-    "vertical": [("  // 3. horizontal: thread tile", _RETURN + "  // 3. horizontal: thread tile")],
-    "nostore": [("const int rows = min(g.tile, g.OH - i * g.tile), cols",
-                 "const int rows = 0, cols")],
+    "loads": [(_VERT, _VERT.replace("vertical", _NEVER + "vertical")),
+              (_HORIZ, _HORIZ.replace("horizontal", _NEVER + "horizontal")), _NO_STORE],
+    "nostore": [_NO_STORE],
     "novert": [_NO_STEPS_V],
     "nohoriz": [_NO_STEPS_H],
     "noboth": [_NO_STEPS_V, _NO_STEPS_H],
-    "blocks3": [("__launch_bounds__(kThreads, 4)", "__launch_bounds__(kThreads, 3)")],
-    "unroll_h2": [("#pragma unroll 1\n      " + _NO_STEPS_H[0],
-                   "#pragma unroll 2\n      " + _NO_STEPS_H[0])],
-    "unroll_v1": [("#pragma unroll 2\n    " + _NO_STEPS_V[0],
-                   "#pragma unroll 1\n    " + _NO_STEPS_V[0])],
+    "ring1": [(_RING, _RING.replace("stages);", "1);"))],
+    "ring2": [(_RING, _RING.replace("stages);", "2);"))],
+    "blocks1": [("__launch_bounds__(kRingThreads, kRingBlocks)", "__launch_bounds__(kRingThreads, 1)"),
+                ("setmaxnreg.inc.sync.aligned.u32 72;", "setmaxnreg.inc.sync.aligned.u32 232;"),
+                ("min(R.total, blocks * multiprocessors())", "min(R.total, multiprocessors())")],
+    "blocks2": [("__launch_bounds__(kRingThreads, kRingBlocks)", "__launch_bounds__(kRingThreads, 2)"),
+                ("setmaxnreg.inc.sync.aligned.u32 72;", "setmaxnreg.inc.sync.aligned.u32 96;"),
+                ("min(R.total, blocks * multiprocessors())", "min(R.total, 2 * multiprocessors())")],
+    "staged3": [("constexpr int kStaged = 2;", "constexpr int kStaged = 3;"),
+                (_RING, _RING.replace("stages);", "2);"))],
+    "tile": [("  if (stages > 0) {", "  if (stages < 0) {")],
+    "unroll_h2": [("#pragma unroll 1\n    " + _NO_STEPS_H[0], "#pragma unroll 2\n    " + _NO_STEPS_H[0])],
+    "unroll_v4": [("#pragma unroll 2\n    " + _NO_STEPS_V[0], "#pragma unroll 4\n    " + _NO_STEPS_V[0])],
 }
 SHIFT_PROBES = {
     "empty": [(_ENTRY_S, _RETURN + _ENTRY_S)],
@@ -152,6 +169,8 @@ PHASE_SHAPES = (("8K->480x270", (4320, 7680), (270, 480)),
                 ("1440p->4K", (1440, 2560), (2160, 3840)),
                 ("2160x2880->4K", (2160, 2880), (2160, 3840)))
 SWEEP = ((64, 128), (64, 256), (128, 128), (96, 128), (32, 256), (32, 128), (128, 256))
+SWEEP_32 = ((64, 96), (64, 48), (128, 96), (32, 96), (64, 144), (64, 192))  # 3/2: multiples of 48
+QUALITY_IN = (1440, 2560)  # FSR Quality, 1440p -> 4K
 SOURCES = {"lanczos_fused_resample": "fused_resample.cu",
            "lanczos_shift_resample": "shift_resample.cu",
            **{fn: "phase_resample.cu" for fn in (
@@ -229,6 +248,16 @@ def time_ms(fn, args: tuple, iters: int = 50) -> float:
 
 def frame_cfg(**kw) -> ResampleConfig:
     return ResampleConfig.from_profile("precise", FRAME_IN, scale=(2, 1), a=3, **kw)
+
+
+def quality_cfg(**kw) -> ResampleConfig:
+    return ResampleConfig.from_profile("precise", QUALITY_IN, scale=(3, 2), a=3, **kw)
+
+
+def ring_of(args: tuple) -> str:
+    """The ring's stages and blocks an SM in a fused launch's arguments
+    (the two integers before the stream)."""
+    return f"ring {args[-3]} stages x {args[-2]} blocks an SM"
 
 
 def probe_phase(lib, tmp: Path, smi: str, designs=("stream", "window")) -> None:
@@ -310,31 +339,39 @@ def main(argv=None) -> int:
     lib = _build.library()
     x = torch.from_numpy(
         np.random.default_rng(0).integers(0, 256, (3,) + FRAME_IN, np.uint8)).cuda()
+    xq = torch.from_numpy(
+        np.random.default_rng(0).integers(0, 256, (3,) + QUALITY_IN, np.uint8)).cuda()
     with tempfile.TemporaryDirectory() as tmp:
         if "fused" in what:
             fn = "lanczos_fused_resample"
-            runs = {name: rc.FusedOps(frame_cfg(**kw), "cuda")
-                    for name, kw in (("fp32", {}), ("fp32 dering", {"dering": True}))}
-            args = {name: launch_args(fn, lambda ops=ops: rc.fused_call(ops, x))
-                    for name, ops in runs.items()}
+            runs = {"fp32": (frame_cfg(), x), "fp32 dering": (frame_cfg(dering=True), x),
+                    "3/2 fp32": (quality_cfg(), xq)}
+            ops = {name: rc.FusedOps(c, "cuda") for name, (c, _) in runs.items()}  # kept: the
+            # launch arguments point into their tables
+            args = {name: launch_args(fn, lambda o=ops[name], img=img: rc.fused_call(o, img))
+                    for name, (_, img) in runs.items()}
             for name, (a, _) in args.items():
-                print(f"fused {name}: production {time_ms(getattr(lib, fn), a):.4f} ms "
-                      f"[{smi}]", flush=True)
+                print(f"fused {name}: production {time_ms(getattr(lib, fn), a):.4f} ms, "
+                      f"{ring_of(a)} [{smi}]", flush=True)
             for probe, subs in FUSED_PROBES.items():
                 f, info = build_probe(fn, subs, Path(tmp), f"fused_{probe}")
                 times = ", ".join(f"{name} {time_ms(f, a):.4f}" for name, (a, _) in args.items())
                 print(f"fused probe {probe}: {times} ms ({info})", flush=True)
         if "sweep" in what:
             fn = "lanczos_fused_resample"
-            for tile, cb in SWEEP:
-                plan = rc.plan_at(frame_cfg(), tile, cb)
-                if plan is None:
-                    print(f"fused sweep tile {tile} cb {cb}: no plan", flush=True)
-                    continue
-                ops = rc.FusedOps(frame_cfg(), "cuda", plan)
-                a, _out = launch_args(fn, lambda ops=ops: rc.fused_call(ops, x))
-                print(f"fused sweep tile {tile} cb {cb}: {time_ms(getattr(lib, fn), a):.4f} ms, "
-                      f"{plan.smem_bytes()} B of shared memory [{smi}]", flush=True)
+            for name, make, img, sweep in (("2/1", frame_cfg, x, SWEEP),
+                                           ("3/2", quality_cfg, xq, SWEEP_32)):
+                for tile, cb in sweep:
+                    plan = rc.plan_at(make(), tile, cb)
+                    if plan is None:
+                        print(f"fused sweep {name} tile {tile} cb {cb}: no plan", flush=True)
+                        continue
+                    ops = rc.FusedOps(make(), "cuda", plan)
+                    a, _out = launch_args(fn, lambda ops=ops, img=img: rc.fused_call(ops, img))
+                    print(f"fused sweep {name} tile {tile} cb {cb} (block {plan.cb}): "
+                          f"{time_ms(getattr(lib, fn), a):.4f} ms, {ring_of(a)}, "
+                          f"{plan.smem_bytes()} B of shared memory one tile a block [{smi}]",
+                          flush=True)
         if "shift" in what:
             fn = "lanczos_shift_resample"
             ops = rc.FusedOps(frame_cfg(dering=True), "cuda", variant="v2")

@@ -7,7 +7,9 @@ JAX package's ``tests/conftest.py`` needs JAX, hence ``--noconftest``):
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Limits: the fused kernel (every instantiation, on its own plans and on
-hand-built chunk plans), kernel 2 and the v1 kernels (every design, and
+hand-built chunk plans, the pipelined kernel and the one-tile-a-block
+kernel each where ``resample_cuda.ring_shape`` sends the launch, as the
+``pipelined`` counter shows), kernel 2 and the v1 kernels (every design, and
 the generic design forced) identical bytes to their plain versions (the
 same taps in the same order, each rounded once: ``fmaf`` on the card,
 ``ops._fma.fma_sum`` in the plain versions), constant planes and the
@@ -51,6 +53,16 @@ def cuda():
     return torch.device("cuda")
 
 
+def _launch(ops, x, **kw):
+    """``fused_call`` on the card, synchronised: its output, and whether
+    the launch took the pipelined kernel (the ``pipelined`` counter)."""
+    before = rc.launches[ops.kernel], rc.pipelined[ops.kernel]
+    got = rc.fused_call(ops, x, **kw)
+    torch.cuda.synchronize()
+    assert rc.launches[ops.kernel] == before[0] + 1
+    return got, rc.pipelined[ops.kernel] == before[1] + 1
+
+
 def _within(got, want, precision):
     d = (got.int() - want.int()).abs()
     lim, frac_lim = LIMITS[precision]
@@ -59,30 +71,34 @@ def _within(got, want, precision):
 
 
 @pytest.mark.parametrize("precision", ["fp32", "bf16"])
-@pytest.mark.parametrize("shape,scale,kw,planes", [
-    ((100, 300), (2, 1), {}, 3),  # ragged row tile and column block
-    ((96, 160), (3, 2), {}, 3),
-    ((90, 130), (2, 1), {"align": "center"}, 3),
-    ((64, 96), (2, 1), {}, 6),  # a batch of two planar images
-    ((128, 512), (1, 2), {}, 3),  # over 48 KB of shared memory
-    ((50, 77), (2, 1), {}, 3),  # odd W and OW = 154: the byte paths in and out
-    ((45, 96), (3, 1), {}, 3),  # W % 16 == 0, OW = 288, block starts off 16-byte bounds
-    ((40, 120), (3, 2), {}, 3),  # OW = 180: 16-byte loads, byte stores
-    ((12, 16), (2, 1), {}, 3),  # one tile, one block
-    ((64, 256), (2, 1), {}, 1),  # every path 16-byte aligned, 4 column blocks
+@pytest.mark.parametrize("shape,scale,kw,planes,ring", [
+    ((100, 300), (2, 1), {}, 3, False),  # ragged row tile and column block
+    ((96, 160), (3, 2), {}, 3, True),  # 96-column blocks
+    ((90, 130), (2, 1), {"align": "center"}, 3, False),
+    ((64, 96), (2, 1), {}, 6, True),  # a batch of two planar images
+    ((128, 512), (1, 2), {}, 3, False),  # over 48 KB of shared memory; a 288-byte band
+    ((50, 77), (2, 1), {}, 3, False),  # odd W and OW = 154: the byte paths in and out
+    ((45, 96), (3, 1), {}, 3, True),  # OH = 135: a ragged last row tile
+    ((40, 120), (3, 2), {}, 3, False),  # W = 120: 16-byte loads, byte stores
+    ((12, 16), (2, 1), {}, 3, False),  # one tile, one block
+    ((64, 256), (2, 1), {}, 1, True),  # every path 16-byte aligned, 4 column blocks
+    ((81, 144), (4, 3), {}, 3, True),  # 4/3
+    ((100, 304), (2, 1), {}, 3, True),  # OH = 200, OW = 608: ragged tile and block
+    ((256, 256), (2, 1), {"a": 2}, 3, True),  # 96 tiles: fewer than the SMs
+    ((2160, 3840), (2, 1), {}, 3, True),  # perf8k-batch4-oncard's frame
+    ((1440, 2560), (3, 2), {}, 3, True),  # quality4k-batch4-upscale's frame
 ])
-def test_kernel_matches_plain_version(cuda, shape, scale, kw, planes, precision):
+def test_kernel_matches_plain_version(cuda, shape, scale, kw, planes, ring, precision):
+    kw = dict(kw)
     cfg = lanczos_torch.ResampleConfig.from_profile(
-        "precise", shape, scale=scale, a=3, precision=precision, **kw
+        "precise", shape, scale=scale, a=kw.pop("a", 3), precision=precision, **kw
     )
     ops = rc.FusedOps(cfg, cuda)
     rng = np.random.default_rng(0)
     x = rng.integers(0, 256, (planes,) + shape, dtype=np.uint8)
     x = torch.from_numpy(x).to(cuda)
-    before = rc.launches[ops.kernel]
-    got = rc.fused_call(ops, x)
-    torch.cuda.synchronize()
-    assert rc.launches[ops.kernel] == before + 1
+    got, pipelined = _launch(ops, x)
+    assert pipelined == ring
     want = rc.fused_resample_reference(x, ops.plan, precision, cfg.out_shape)
     assert torch.equal(got, want)  # each tap one fmaf in both
 
@@ -112,32 +128,34 @@ def test_wrapper_refuses_bad_inputs(cuda):
 
 
 @pytest.mark.parametrize("precision", ["fp32", "bf16"])
-@pytest.mark.parametrize("shape,scale,kw,planes", [
-    ((60, 80), (2, 1), {"dering": True}, 3),
-    ((60, 80), (3, 1), {"dering": True, "edge_mode": "reflect"}, 3),
-    ((60, 80), (3, 2), {"dering": True}, 3),
-    ((48, 64), (3, 2), {"dering": True, "edge_mode": "drop", "normalize": False}, 3),
-    ((48, 64), (3, 2), {"dering": True, "edge_mode": "drop"}, 3),
-    ((48, 64), (2, 1), {"intermediate_quantize": True}, 3),
-    ((48, 64), (2, 1), {"dering": True, "intermediate_quantize": True}, 3),
-    ((100, 300), (2, 1), {"dering": True}, 6),  # ragged tile and block, a batch of 2
-    ((50, 77), (2, 1), {"dering": True}, 3),  # odd W, OW = 154
-    ((40, 120), (3, 2), {"dering": True, "intermediate_quantize": True}, 3),  # OW = 180
-    ((12, 16), (2, 1), {"dering": True}, 3),  # one tile, one block
-    ((64, 256), (2, 1), {"dering": True, "intermediate_quantize": True}, 1),  # all aligned
+@pytest.mark.parametrize("shape,scale,kw,planes,ring", [
+    ((60, 80), (2, 1), {"dering": True}, 3, True),
+    ((60, 80), (3, 1), {"dering": True, "edge_mode": "reflect"}, 3, True),
+    ((60, 80), (3, 2), {"dering": True}, 3, False),  # OW = 120
+    ((48, 64), (3, 2), {"dering": True, "edge_mode": "drop", "normalize": False}, 3, True),
+    ((48, 64), (3, 2), {"dering": True, "edge_mode": "drop"}, 3, True),
+    ((48, 64), (2, 1), {"intermediate_quantize": True}, 3, True),
+    ((48, 64), (2, 1), {"dering": True, "intermediate_quantize": True}, 3, True),
+    ((100, 300), (2, 1), {"dering": True}, 6, False),  # ragged tile and block, a batch of 2
+    ((50, 77), (2, 1), {"dering": True}, 3, False),  # odd W, OW = 154
+    ((40, 120), (3, 2), {"dering": True, "intermediate_quantize": True}, 3, False),  # OW = 180
+    ((12, 16), (2, 1), {"dering": True}, 3, False),  # one tile, one block
+    ((64, 256), (2, 1), {"dering": True, "intermediate_quantize": True}, 1, True),  # aligned
+    ((81, 144), (4, 3), {"dering": True, "intermediate_quantize": True}, 3, True),
+    ((100, 304), (2, 1), {"dering": True}, 3, True),  # ragged tile and block
+    ((256, 256), (2, 1), {"intermediate_quantize": True, "a": 2}, 3, True),
 ])
-def test_nonlinear_kernel_matches_plain_version(cuda, shape, scale, kw, planes, precision):
+def test_nonlinear_kernel_matches_plain_version(cuda, shape, scale, kw, planes, ring, precision):
+    kw = dict(kw)
     cfg = lanczos_torch.ResampleConfig.from_profile(
-        "precise", shape, scale=scale, a=3, precision=precision, **kw
+        "precise", shape, scale=scale, a=kw.pop("a", 3), precision=precision, **kw
     )
     ops = rc.FusedOps(cfg, cuda)
     assert ops.variant == "mxu" and ops.kernel.startswith(f"fused_resample_{precision}_")
     x = np.random.default_rng(2).integers(0, 256, (planes,) + shape, dtype=np.uint8)
     x = torch.from_numpy(x).to(cuda)
-    before = rc.launches[ops.kernel]
-    got = rc.fused_call(ops, x)
-    torch.cuda.synchronize()
-    assert rc.launches[ops.kernel] == before + 1
+    got, pipelined = _launch(ops, x)
+    assert pipelined == ring
     want = rc.fused_resample_reference(
         x, ops.plan, precision, cfg.out_shape, cfg.dering, cfg.intermediate_quantize
     )
@@ -446,10 +464,8 @@ def test_chunk_plan_kernel_matches_plain_version(cuda, outs, kw, chunk, precisio
     ops = sm._mxu
     x = torch.from_numpy(np.random.default_rng(13).integers(
         0, 256, (3, sm.win, 64), dtype=np.uint8)).to(cuda)
-    before = rc.launches[ops.kernel]
-    got = rc.fused_call(ops, x)
-    torch.cuda.synchronize()
-    assert rc.launches[ops.kernel] == before + 1
+    got, pipelined = _launch(ops, x)
+    assert pipelined == (chunk % 16 == 0)  # a chunk of 24 rows: bases in 24-byte rows
     want = rc.fused_resample_reference(x, ops.plan, precision, ops.cfg.out_shape,
                                        cfg.dering, cfg.intermediate_quantize)
     assert torch.equal(got, want)
@@ -570,14 +586,14 @@ def test_video_and_y4m_equal_the_upscaler(cuda, tmp_path):
 
 
 @pytest.mark.parametrize("precision", ["fp32", "bf16"])
-@pytest.mark.parametrize("shape,kw,mesh_shape", [
-    ((64, 48), {}, (2, 4)),
-    ((96, 160), {"dering": True}, (1, 4)),
-    ((120, 96), {"intermediate_quantize": True}, (2, 2)),
-    ((48, 64), {"dering": True, "edge_mode": "drop", "normalize": False}, (1, 4)),
-    ((90, 120), {"align": "center"}, (1, 3)),
+@pytest.mark.parametrize("shape,kw,mesh_shape,ring", [
+    ((64, 48), {}, (2, 4), True),
+    ((96, 160), {"dering": True}, (1, 4), True),
+    ((120, 96), {"intermediate_quantize": True}, (2, 2), True),
+    ((48, 64), {"dering": True, "edge_mode": "drop", "normalize": False}, (1, 4), False),
+    ((90, 120), {"align": "center"}, (1, 3), False),
 ])
-def test_sharded_fused_kernel_equals_the_whole_frame_kernel(cuda, shape, kw, mesh_shape,
+def test_sharded_fused_kernel_equals_the_whole_frame_kernel(cuda, shape, kw, mesh_shape, ring,
                                                             precision):
     from lanczos_torch.parallel.mesh import Mesh
 
@@ -592,11 +608,13 @@ def test_sharded_fused_kernel_equals_the_whole_frame_kernel(cuda, shape, kw, mes
     for overlap, per_shard in ((True, 2), (False, 1)):
         sh = lanczos_torch.ShardedUpscaler(cfg, mesh, backend="mxu", overlap=overlap)
         kernel = sh._tables(img.device).fused.kernel
-        before = rc.launches[kernel]
+        before = rc.launches[kernel], rc.pipelined[kernel]
         got = sh(img)
         torch.cuda.synchronize()
-        assert rc.launches[kernel] == before + per_shard * d_n * r_n
+        assert rc.launches[kernel] == before[0] + per_shard * d_n * r_n
         assert got.is_cuda and torch.equal(got, want)
+        if ring:  # every shard's launch on its own vertical tables, through the ring
+            assert rc.pipelined[kernel] == before[1] + per_shard * d_n * r_n
 
 
 def test_wv_tables_refusals_on_the_card(cuda):

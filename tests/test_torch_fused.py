@@ -187,7 +187,13 @@ def test_plan_bands_cover_every_tap(shape, scale, kw):
     assert not rh[iw:].any()
 
 
-def _emulate_kernel(x, lay, oh, ow, bf16, dering=False, quant=False):
+def _swizzle(lin, on):
+    """A byte of a TMA box in shared memory, 128-byte swizzled where ``on``:
+    address bits 4-6 XOR bits 7-9 (``QuarterStage`` in the kernel)."""
+    return lin ^ ((lin >> 3) & 0x70) if on else lin
+
+
+def _emulate_kernel(x, lay, oh, ow, bf16, dering=False, quant=False, ring=False):
     """The CUDA kernel's loops in numpy, on its host layout: per (block,
     tile, plane), the uint8 band from the 16-byte boundary at or below the
     block's first column (zero past the image); the vertical pass, per
@@ -198,7 +204,11 @@ def _emulate_kernel(x, lay, oh, ow, bf16, dering=False, quant=False):
     in bf16 rounded; then the horizontal pass, per group of four columns a
     sum over ``base_h .. base_h + win_h``, with dering clamped to the
     intermediate columns ``ch[uniq_h[b]]`` names, the trunc-clip into the
-    staged tile (chunks swizzled by row group) and the masked store."""
+    staged tile (chunks swizzled by row group) and the masked store.  With
+    ``ring``, the pipelined kernel's staging and store instead: row r of
+    the tile into row r >> 2 of quarter r & 3 (128-byte swizzled where a
+    block is 128 columns), each quarter out as a TMA box of ``tile / 4``
+    rows by ``cb`` bytes to output rows 4k + q, clipped at the edges."""
     nc, h, w = x.shape
     out = np.full((nc, oh, ow), 7, np.uint8)  # stores must cover every pixel
     tile, tile_p, kv = lay["tile"], lay["tile_p"], lay["kv"]
@@ -255,6 +265,8 @@ def _emulate_kernel(x, lay, oh, ow, bf16, dering=False, quant=False):
                     midT = torch.from_numpy(midT).bfloat16().float().numpy()
                 u = lay["uniq_h"][b]
                 stage = np.zeros((tile_p, stage_w), np.uint8)
+                swz = cb == 128
+                quarters = np.zeros((4, -(-tile_p // 4 * cb // 1024) * 1024), np.uint8)
                 for cg in range(cb_p // 4):
                     base = dj + lay["base_h"][u, cg]
                     assert base + win_h <= mw
@@ -264,8 +276,20 @@ def _emulate_kernel(x, lay, oh, ow, bf16, dering=False, quant=False):
                         acc = clamp(acc, midT[ch[0]].T, midT[ch[1]].T)
                     q = np.trunc(np.clip(acc, 0, 255)).astype(np.uint8)  # (tile_p, 4)
                     for r in range(tile_p):
+                        if ring:
+                            at = _swizzle((r >> 2) * cb + 4 * cg, swz)
+                            quarters[r & 3, at : at + 4] = q[r]
+                            continue
                         at = 16 * ((cg >> 2) ^ ((r >> 2) & mask)) + 4 * (cg & 3)
                         stage[r, at : at + 4] = q[r]
+                if ring:
+                    for qq in range(4):
+                        for k in range(tile // 4):
+                            row = 4 * (i * tile // 4 + k) + qq
+                            for c in range(min(cb, ow - b * cb)):
+                                if row < oh:
+                                    out[p, row, b * cb + c] = quarters[qq, _swizzle(k * cb + c, swz)]
+                    continue
                 rows = min(tile, oh - i * tile)
                 cols = min(cb, ow - b * cb)
                 for r in range(rows):
@@ -482,3 +506,203 @@ def test_build_needs_nvcc_and_is_keyed_by_the_sources(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build._nvcc()
+
+
+# ---------------------------------------------------------------------------
+# the pipelined kernel's host side: the path rule, the schedule, the ring
+# ---------------------------------------------------------------------------
+
+
+def _int_fields(cfg, tiles=None):
+    plan = rc.fused_plan(cfg) if tiles is None else rc.plan_at(cfg, *tiles)
+    lay = rc.kernel_layout(plan, cfg.precision)
+    return {k: v for k, v in lay.items() if isinstance(v, int)}
+
+
+@pytest.mark.parametrize("shape,scale,kw,tiles,pointers,want", [
+    ((2160, 3840), (2, 1), {}, None, (0, 256), (3, 3)),  # perf8k-batch4-oncard
+    ((1440, 2560), (3, 2), {}, None, (0, 256), (3, 3)),  # quality4k-batch4-upscale
+    ((2160, 3840), (2, 1), {"dering": True, "intermediate_quantize": True}, None, (0, 256), (3, 3)),
+    ((256, 256), (2, 1), {"a": 2}, None, (0, 256), (4, 3)),  # fewer tiles than SMs
+    ((512, 256), (1, 2), {"out_shape": (256, 256)}, None, (0, 256), (4, 1)),  # 1 block an SM
+    ((2160, 3840), (2, 1), {}, None, (0, 8), (0, 0)),  # an unaligned pointer
+    ((50, 77), (2, 1), {}, None, (0, 256), (0, 0)),  # W % 16 != 0
+    ((40, 120), (3, 2), {}, None, (0, 256), (0, 0)),  # W = 120
+    ((128, 512), (1, 2), {}, None, (0, 256), (0, 0)),  # a band 288 bytes wide
+    ((40, 64), (2, 1), {}, (13, 20), (0, 256), (0, 0)),  # tile 13, block 16: no quarters
+    ((96, 160), (3, 2), {}, (40, 96), (0, 256), (0, 0)),  # tile_p 40: base rows of 40 bytes
+])
+def test_ring_shape_rule(shape, scale, kw, tiles, pointers, want):
+    """Which kernel a launch takes, and the ring's stages and blocks an SM,
+    from the plan's geometry and the tensors' alignment alone."""
+    kw = dict(kw)
+    a = kw.pop("a", 3)
+    size = {"out_shape": kw.pop("out_shape")} if "out_shape" in kw else {"scale": scale}
+    cfg = ResampleConfig.from_profile("precise", shape, a=a, **size, **kw)
+    f = _int_fields(cfg, tiles)
+    (_, w), (oh, ow) = cfg.in_shape, cfg.out_shape
+    assert rc.ring_shape(f, w, oh, ow, pointers, cfg.dering) == want
+
+
+def test_ring_layout_and_what_does_not_fit():
+    """The ring's shared memory at 4K->8K (the launcher's sum, by hand),
+    and a band so large that two stages fit no block."""
+    f = _int_fields(ResampleConfig.from_profile("precise", (2160, 3840), scale=(2, 1), a=3))
+    # band 37 x 112, weights 4 (7 x 64 + 7 x 128), bases 64 + 128, to 128 bytes
+    assert rc.ring_layout(f, False)["stage"] == 9728
+    # 1024 to align; 8 quarters of 16 x 128 bytes; the intermediate 4 x 80 x 64; 4 x 20 of barriers
+    assert rc.ring_layout(f, False)["fixed"] == 1024 + 8 * 2048 + 20480 + 80
+    assert rc.ring_layout(f, True)["stage"] == 9728 + 8 * (64 + 128)
+    big = dict(f, kv=256, bw=256, win_v=240, mw=240)
+    assert rc.ring_shape(big, 3840, 4320, 7680, (0,), False) == (0, 0)
+
+
+@pytest.mark.parametrize("nh,target,want", [
+    (1, 128, 128), (2, 128, 128), (3, 128, 96), (4, 128, 128), (5, 128, 80), (7, 128, 112),
+    (9, 128, 108), (3, 64, 48), (3, 32, 24), (37, 128, 128),
+])
+def test_block_width_prefers_whole_chunks(nh, target, want):
+    """Blocks are multiples of lcm(N, 4), and of 16 where one fits."""
+    assert rc._block_width(nh, target) == want
+
+
+def _ring_runs(total, grid, num_tiles, n_cb):
+    """The ring kernel's schedule re-enacted: block g takes the run
+    [g·T/G, (g+1)·T/G) of (plane, column block, row tile), row tiles
+    fastest (``tile_of``)."""
+    runs = []
+    for g in range(grid):
+        run = []
+        for t in range(g * total // grid, (g + 1) * total // grid):
+            strip = t // num_tiles
+            p = strip // n_cb
+            run.append((p, strip - p * n_cb, t - strip * num_tiles))
+        runs.append(run)
+    return runs
+
+
+@pytest.mark.parametrize("grid", [1, 7, 132, 264])
+@pytest.mark.parametrize("planes,n_cb,num_tiles", [(1, 1, 3), (3, 4, 8), (3, 60, 68), (12, 5, 7)])
+def test_ring_schedule_visits_every_tile_once(grid, planes, n_cb, num_tiles):
+    total = planes * n_cb * num_tiles
+    grid = min(total, grid)  # the launcher's grid: min(tiles, blocks an SM x SMs)
+    runs = _ring_runs(total, grid, num_tiles, n_cb)
+    seen = [t for run in runs for t in run]
+    assert len(seen) == total and set(seen) == {
+        (p, b, i) for p in range(planes) for b in range(n_cb) for i in range(num_tiles)}
+    sizes = [len(run) for run in runs]
+    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+    for run in runs:  # down one column strip, then to the top of the next
+        for (p0, b0, i0), (p1, b1, i1) in zip(run, run[1:]):
+            assert (p1, b1, i1) == (p0, b0, i0 + 1) or (i0 == num_tiles - 1 and i1 == 0)
+
+
+class _Barrier:
+    """An mbarrier: a phase completes when its arrivals and its bytes are in."""
+
+    def __init__(self, count):
+        self.count, self.pending, self.tx, self.phases = count, count, 0, 0
+
+    def ready(self, parity):  # try_wait.parity: the phase of that parity has completed
+        return (self.phases & 1) != parity
+
+    def arrive(self, tx=0):
+        self.pending, self.tx = self.pending - 1, self.tx + tx
+        self._complete()
+
+    def complete_tx(self, n):
+        self.tx -= n
+        self._complete()
+
+    def _complete(self):
+        if self.pending == 0 and self.tx == 0:
+            self.phases, self.pending = self.phases + 1, self.count
+
+
+def _run_ring(tiles, uniq, stages, seed):
+    """The ring kernel's protocol re-enacted in one block, its steps in a
+    random order: the producer thread (wait empty[s] at parity (n & 1) ^ 1,
+    arrive with the bytes on full[s], the copies; a stage's horizontal
+    tables only where it holds another block's), the copies landing later,
+    the consumers (wait full[s] at parity n & 1, read the stage, wait until
+    at most one store group reads staging, write staging buffer k & 1,
+    arrive on empty[s], one store group) and the stores draining later.
+    Returns the tiles in the order their stores left."""
+    rng = np.random.default_rng(seed)
+    full = [_Barrier(1) for _ in range(stages)]
+    empty = [_Barrier(1) for _ in range(stages)]
+    stage = [dict(tile=None, u=None) for _ in range(stages)]
+    held = [-1] * stages
+    loads, stores, done = [], [], []  # in flight: (stage, tile, u or None, bytes); (buffer, tile)
+    prod = dict(k=0, s=0, n=0)
+    cons = dict(k=0, s=0, n=0)
+    while len(done) < len(tiles):
+        moves = []
+        if prod["k"] < len(tiles) and empty[prod["s"]].ready((prod["n"] & 1) ^ 1):
+            moves.append("produce")
+        if cons["k"] < len(tiles) and full[cons["s"]].ready(cons["n"] & 1) and len(stores) <= 1:
+            moves.append("consume")
+        moves += ["land"] * bool(loads) + ["drain"] * bool(stores)
+        assert moves, "the ring deadlocked"
+        move = moves[rng.integers(len(moves))]
+        if move == "produce":
+            s, k = prod["s"], prod["k"]
+            u = uniq[tiles[k][1]]
+            new_h = held[s] != u
+            full[s].arrive(tx=2 + new_h)
+            loads.append((s, k, u if new_h else None, 2 + new_h))
+            held[s] = u
+            prod.update(k=k + 1, s=(s + 1) % stages, n=prod["n"] + (s + 1 == stages))
+        elif move == "land":
+            s, k, u, n = loads.pop(rng.integers(len(loads)))
+            stage[s]["tile"] = k
+            if u is not None:
+                stage[s]["u"] = u
+            full[s].complete_tx(n)
+        elif move == "consume":
+            s, k = cons["s"], cons["k"]
+            assert stage[s]["tile"] == k and stage[s]["u"] == uniq[tiles[k][1]]
+            assert all(buf != k & 1 for buf, _ in stores), "staging overwritten while stored"
+            empty[s].arrive()
+            stores.append((k & 1, k))
+            cons.update(k=k + 1, s=(s + 1) % stages, n=cons["n"] + (s + 1 == stages))
+        else:
+            done.append(stores.pop(0)[1])  # a thread's bulk groups complete in order
+    return done
+
+
+@pytest.mark.parametrize("stages", [1, 2, 3, 4])
+@pytest.mark.parametrize("seed", range(3))
+def test_ring_protocol_reenacted(stages, seed):
+    """Stage and phase arithmetic: no deadlock, every tile read from its own
+    stage with its own column block's tables, no staging buffer written
+    while its store reads it, every tile stored once, in order."""
+    runs = _ring_runs(3 * 5 * 7, 4, 7, 5)
+    uniq = [0, 1, 1, 1, 2]  # block -> unique horizontal tables, as at 2/1
+    for run in runs:
+        assert _run_ring(run, uniq, stages, seed) == list(range(len(run)))
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("shape,scale,kw,tiles", [
+    ((40, 128), (2, 1), {}, (64, 128)),  # 128-column blocks: swizzled quarters
+    ((40, 128), (2, 1), {"dering": True}, (64, 128)),
+    ((48, 96), (3, 2), {"align": "center"}, (64, 128)),  # 96 columns: plain quarters, ragged
+    ((30, 96), (4, 3), {"intermediate_quantize": True}, (16, 128)),  # 4 rows a quarter
+])
+def test_ring_staging_reenacted(shape, scale, kw, tiles, precision):
+    """The pipelined kernel's staged quarters and TMA stores, re-enacted on
+    a plan it takes: identical bytes to the plain version."""
+    cfg = ResampleConfig.from_profile("precise", shape, scale=scale, a=3, precision=precision,
+                                      **kw)
+    plan = rc.plan_at(cfg, *tiles)
+    lay = rc.kernel_layout(plan, cfg.precision)
+    (_, w), (oh, ow) = cfg.in_shape, cfg.out_shape
+    f = {k: v for k, v in lay.items() if isinstance(v, int)}
+    assert rc.ring_shape(f, w, oh, ow, (0,), cfg.dering)[0] > 0
+    x = _img(shape, seed=4).transpose(2, 0, 1).copy()
+    got = _emulate_kernel(x, lay, oh, ow, precision == "bf16", cfg.dering,
+                          cfg.intermediate_quantize, ring=True)
+    want = rc.fused_resample_reference(torch.from_numpy(x), plan, precision, (oh, ow),
+                                       cfg.dering, cfg.intermediate_quantize)
+    np.testing.assert_array_equal(got, want.numpy())
