@@ -1,14 +1,15 @@
 """Readings for the limits of the comparison: one cell run on many seeds in
 one process, the program as the configuration states it and the control
-(the program's own path one precision below), each with a short window at
-the cell's load.
+(the program with the configuration's ``control`` settings, one step below
+what it states), each with a short window at the cell's load.
 
     python3 benchmark/calibrate.py --workload <cell> --seconds 2 \\
         --seeds 1 2 3 ... --control-seeds 101 102 103 [--out calib.jsonl]
 
 Prints one JSON line a run: the seed, whether it was the control, each
 number compared and ``correct``.  The benchmark's own runs never run the
-control.
+control.  ``--control-seeds`` is refused, before any run, for a
+configuration whose ``control`` is null.
 """
 
 import argparse
@@ -31,6 +32,12 @@ def main(argv=None) -> int:
     p.add_argument("--out", default=None)
     args = p.parse_args(argv)
     cell = harness.find_cell(args.workload)
+    if args.control_seeds:
+        try:
+            harness.control_config(cell.config)
+        except ValueError as e:
+            print(f"--control-seeds refused: {e}", file=sys.stderr)
+            return 2
     import torch
 
     if not torch.cuda.is_available() or torch.cuda.device_count() < cell.chips:

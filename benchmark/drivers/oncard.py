@@ -17,7 +17,8 @@ Traffic keys:
 End-to-end values: ``mpix_s``, the output megapixels of every call issued
 in the window over the time from its start to the synchronize that ends it;
 ``call_ms_p95``, the 95th percentile over all calls of each call's device
-time, between CUDA events recorded on the stream before and after it.
+time, between CUDA events recorded on the stream before and after it.  A
+window issues at least ``harness.MIN_CALLS`` calls.
 """
 
 from __future__ import annotations
@@ -27,9 +28,21 @@ import time
 import torch
 
 from benchmark.devtrace import WINDOW
-from benchmark.harness import Window, log, percentile
+from benchmark.harness import MIN_CALLS, Window, log, percentile
 
 WARM_SECONDS = 0.5  # calls after the first ones, to size the pool of events
+# the values a window returns on the card
+VALUES = ("mpix_s", "call_ms_p95", "window_s")
+
+
+def entry(traffic: dict) -> tuple:
+    """``(owner, attribute)`` of the program that each call of the window
+    goes through (where the tests plant a fault in the timed path)."""
+    import lanczos_torch
+
+    if traffic["entry"] == "planar":
+        return lanczos_torch.Upscaler, "planar"
+    return lanczos_torch, "upscale"
 
 
 class Driver:
@@ -111,7 +124,7 @@ class Driver:
                     ev[2 * n + 1].record()
                 sampler.offer(n % d, y)
                 n += 1
-                if time.perf_counter() >= deadline:
+                if n >= MIN_CALLS and time.perf_counter() >= deadline:
                     break
             ctx.sync()
             t1 = time.perf_counter()

@@ -17,7 +17,8 @@ End-to-end values: ``video_fps``, the frames yielded in the window over the
 time from its start to the last frame's yield (the source stops handing in
 frames at ``--seconds`` and the pipeline drains); ``video_frame_ms_p95``, the
 95th percentile over all frames of the host time from when the source
-handed a frame in to when ``frames()`` yielded its output.
+handed a frame in to when ``frames()`` yielded its output.  The source
+hands in at least ``harness.MIN_CALLS`` launches' frames.
 """
 
 from __future__ import annotations
@@ -28,7 +29,20 @@ import time
 import torch
 
 from benchmark.devtrace import WINDOW
-from benchmark.harness import Window, log, percentile
+from benchmark.harness import MIN_CALLS, Window, log, percentile
+
+# the values a window returns on the card
+VALUES = ("video_fps", "video_frame_ms_p95", "window_s")
+
+
+def entry(traffic: dict) -> tuple:
+    """``(owner, attribute)`` of the program that each launch of the window
+    goes through (where the tests plant a fault in the timed path): the
+    one-card model, or the sharded one on a mesh."""
+    from lanczos_torch.models.upscaler import Upscaler
+    from lanczos_torch.parallel.sharded import ShardedUpscaler
+
+    return (ShardedUpscaler if traffic.get("mesh") else Upscaler), "__call__"
 
 
 def slices(times: list, t0: float, width: float) -> list:
@@ -74,6 +88,7 @@ class Driver:
 
     def window(self, seconds: float, sampler) -> Window:
         ctx, frames, d = self.ctx, self.frames, self.distinct
+        least = MIN_CALLS * self.vu.batch
         handed: list = []
         deadline = math.inf
 
@@ -82,7 +97,7 @@ class Driver:
             while True:
                 with ctx.span("bench.source"):
                     t = time.perf_counter()
-                    if t >= deadline:
+                    if i >= least and t >= deadline:
                         return
                     handed.append(t)
                 yield frames[i % d]

@@ -14,7 +14,7 @@ measured window of ``--seconds``; with ``--trace 1`` a second window of at
 most :data:`TRACE_SECONDS` under ``torch.profiler``; the peak device memory;
 the program's objects freed; then a sample of the outputs that the windows
 produced, drawn from the seed, compared with the plain float64 reference
-(``benchmark/reference``).
+that the configuration names (``benchmark/reference/<reference>.py``).
 """
 
 from __future__ import annotations
@@ -41,8 +41,9 @@ TRACE_SECONDS = 3.0
 # modules that may not be loaded in the process that prints the result
 # (compared by their whole top-level name)
 FORBIDDEN = ("jax", "jaxlib", "flax", "lanczos_tpu")
-# the control: the program's own path one precision below the configuration's
-CONTROL_PRECISION = {"fp32": "bf16"}
+# calls of the program's entry that a window hands in before it may end:
+# a call that returns the result of the call before shows only in a second
+MIN_CALLS = 2
 # what the program's preset must mean for the reference to hold it
 SEMANTICS = ("a", "channels", "filter", "edge_mode", "align", "order", "normalize",
              "dering", "intermediate_quantize")
@@ -94,17 +95,33 @@ def load(root: Path, kind: str, name: str):
     return mod
 
 
-def program_config(conf: dict, precision: str, shape=None):
-    """The program's ``ResampleConfig`` for the configuration file, at
-    ``precision``; ``shape`` ``((H, W), (OH, OW))`` replaces the file's
-    shapes (tests on the CPU).  Raises where the program's preset no longer
-    means what the file states."""
+def control_config(conf: dict) -> dict:
+    """The configuration file with its ``control`` settings (the program one
+    step below what the file states) in place of its own keys.  Raises
+    ``ValueError`` where ``control`` is null (the program has nothing
+    lower) or sets a key that the file does not state."""
+    over = conf["control"]
+    if over is None:
+        raise ValueError(f"configuration {conf['name']!r} states no control: the program "
+                         f"has nothing below what it states")
+    unknown = sorted(set(over) - set(conf))
+    if unknown:
+        raise ValueError(f"configuration {conf['name']!r}: its control sets {unknown}, "
+                         f"keys that the file does not state")
+    return {**conf, **over}
+
+
+def program_config(conf: dict, shape=None):
+    """The program's ``ResampleConfig`` for the configuration file;
+    ``shape`` ``((H, W), (OH, OW))`` replaces the file's shapes (tests on
+    the CPU).  Raises where the program's preset no longer means what the
+    file states."""
     from lanczos_torch.core.config import ResampleConfig
 
     in_shape, out_shape = shape or (conf["in_shape"], conf["out_shape"])
     cfg = ResampleConfig.from_profile(conf["profile"], tuple(in_shape),
                                       out_shape=tuple(out_shape), a=conf["a"],
-                                      precision=precision)
+                                      precision=conf["precision"])
     for key in SEMANTICS:
         got = getattr(cfg, key)
         got = getattr(got, "value", got)
@@ -242,13 +259,19 @@ def forbidden_loaded() -> list:
     return sorted({m.split(".")[0] for m in list(sys.modules)} & set(FORBIDDEN))
 
 
-def judge(drv, samples: list, conf: dict, out_shape, device, limit: float) -> dict:
-    """The widest gap, in output levels, between a sampled output and the
-    float64 reference of its input, over every sampled output (``inf``
-    where an output has the wrong shape), and how many sampled outputs lie
-    past ``limit``."""
-    from benchmark.reference import lanczos as ref
+def reference(cell: Cell):
+    """The plain reference that the cell's configuration names by its
+    ``reference`` key: ``benchmark/reference/<reference>.py``, with
+    ``check_semantics(conf)``, ``exact(planes, conf, out_shape)`` and
+    ``gap_lsb(got, r)``."""
+    return load(cell.root, "reference", cell.config["reference"])
 
+
+def judge(drv, samples: list, ref, conf: dict, out_shape, device, limit: float) -> dict:
+    """The widest gap, in output levels, between a sampled output and the
+    float64 reference ``ref`` of its input, over every sampled output
+    (``inf`` where an output has the wrong shape), and how many sampled
+    outputs lie past ``limit``."""
     by_key = defaultdict(list)
     for _, key, out in samples:
         by_key[key].append(out)
@@ -284,8 +307,8 @@ def execute(cell: Cell, seed: int, seconds: float, trace: bool, device: str = "c
             shape=None, control: bool = False, t0: Optional[float] = None) -> dict:
     """One run of ``cell``; returns the result line's object.  ``device``
     ``"cpu"`` runs the program's plain versions (tests: nothing is timed,
-    no metric is reported); ``control`` runs the program one precision below
-    the configuration's."""
+    no metric is reported); ``control`` runs the program with the
+    configuration's ``control`` settings (:func:`control_config`)."""
     t0 = time.perf_counter() if t0 is None else t0
     import torch
 
@@ -295,9 +318,9 @@ def execute(cell: Cell, seed: int, seconds: float, trace: bool, device: str = "c
     on_card = device == "cuda"
     devices = ([torch.device("cuda", i) for i in range(cell.chips)] if on_card
                else [torch.device("cpu")] * cell.chips)
-    precision = CONTROL_PRECISION[conf["precision"]] if control else conf["precision"]
-    cfg = program_config(conf, precision, shape)
-    ctx = Context(cell, cfg, seed, devices, on_card)
+    run = dataclasses.replace(cell, config=control_config(conf)) if control else cell
+    cfg = program_config(run.config, shape)
+    ctx = Context(run, cfg, seed, devices, on_card)
     drv = load(cell.root, "drivers", cell.traffic["driver"]).Driver(ctx)
     drv.setup()
     ctx.sync()
@@ -329,7 +352,7 @@ def execute(cell: Cell, seed: int, seconds: float, trace: bool, device: str = "c
     samples = sampler.items()
     del sampler
     limit = float(conf["limits"]["gap_lsb"])
-    verdict = judge(drv, samples, conf, (oh, ow), devices[0], limit)
+    verdict = judge(drv, samples, reference(cell), conf, (oh, ow), devices[0], limit)
     del samples
     correct = (verdict["gap_lsb"] <= limit and missing == 0 and verdict["checked"] > 0)
 

@@ -1,10 +1,12 @@
 """The comparison that decides ``correct`` fails what it must, on the CPU at
-the configurations' scales but a tiny size: the control (the program's own
-path one precision below the configuration's), and the timed path broken
-underneath the harness in each way that a cell can break — a call that
-hands back the result of the call before, half of a batch left out, the
-exchange between cards left out, an output byte altered where it is made.
-The run is driven as on the card, with the look for a card skipped."""
+the configurations' scales but a tiny size: the control (the program with
+the configuration's ``control`` settings, one step below what it states),
+and the timed path broken underneath the harness in each way that a cell
+can break — a call that hands back the result of the call before, half of
+a batch left out, the exchange between cards left out, an output byte
+altered where it is made.  The run is driven as on the card, with the look
+for a card skipped; each fault is planted where the cell's driver says its
+window enters the program (its ``entry(traffic)``)."""
 
 from __future__ import annotations
 
@@ -13,20 +15,10 @@ import functools
 import pytest
 import torch
 
-import lanczos_torch
 from benchmark import harness
-from lanczos_torch.models.upscaler import Upscaler
 from lanczos_torch.parallel import sharded
 
-from .test_bm_harness import CELLS, tiny
-
-# where each cell's window enters the program: (owner, attribute)
-ENTRY = {
-    "perf8k-batch4-oncard": (Upscaler, "planar"),
-    "quality4k-batch4-upscale": (lanczos_torch, "upscale"),
-    "perf8k-video-host": (Upscaler, "__call__"),
-    "perf8k-video-host-4card": (sharded.ShardedUpscaler, "__call__"),
-}
+from .test_bm_harness import CELLS, ROOT, tiny
 
 
 def stale(fn):
@@ -73,14 +65,26 @@ CASES = [(name, fault) for name in CELLS for fault in FAULTS
          if fault != "half_batch" or harness.find_cell(name).traffic["batch"] > 1]
 
 
-def run(name: str, seed: int = 2**31 + 17, control: bool = False) -> dict:
+def run(name: str, seed: int = 2**31 + 17, control: bool = False,
+        seconds: float = 0.15) -> dict:
     cell = harness.find_cell(name)
-    return harness.execute(cell, seed, 0.15, False, device="cpu", shape=tiny(cell),
+    return harness.execute(cell, seed, seconds, False, device="cpu", shape=tiny(cell),
                            control=control)
+
+
+def plant(name: str, fault: str, monkeypatch) -> None:
+    traffic = harness.find_cell(name).traffic
+    owner, attr = harness.load(ROOT, "drivers", traffic["driver"]).entry(traffic)
+    monkeypatch.setattr(owner, attr, FAULTS[fault](getattr(owner, attr)))
 
 
 @pytest.mark.parametrize("name", CELLS)
 def test_the_control_is_not_correct(name):
+    conf = harness.find_cell(name).config
+    if conf["control"] is None:
+        with pytest.raises(ValueError, match=conf["name"]) as e:
+            run(name, control=True)
+        pytest.skip(str(e.value))
     r = run(name, control=True)
     limit = r["check"]["gap_lsb"]["limit"]
     assert not r["correct"] and r["check"]["gap_lsb"]["value"] > 10 * limit, r
@@ -88,9 +92,18 @@ def test_the_control_is_not_correct(name):
 
 @pytest.mark.parametrize("name,fault", CASES)
 def test_a_broken_timed_path_is_not_correct(name, fault, monkeypatch):
-    owner, attr = ENTRY[name]
-    monkeypatch.setattr(owner, attr, FAULTS[fault](getattr(owner, attr)))
+    plant(name, fault, monkeypatch)
     r = run(name)
+    assert not r["correct"] and r["failed"] > 0, r
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_a_window_that_ends_at_once_still_shows_a_stale_call(name, monkeypatch):
+    """A window of no time still hands in ``harness.MIN_CALLS`` calls, so a
+    call that returns the result of the one before shows, however few calls
+    a loaded host gets through in a short window."""
+    plant(name, "stale", monkeypatch)
+    r = run(name, seconds=0.0)
     assert not r["correct"] and r["failed"] > 0, r
 
 

@@ -1,9 +1,13 @@
 """The yardstick on the CPU: the plain reference against a direct float64
-sum, its independence from the program, the comparison's gap, the frozen
-bounds, and the traced window's arithmetic on hand-made events."""
+sum, the independence from the program of every reference a configuration
+names, the comparison's gap, the same judgement from a reference loaded by
+the configuration's name as from one imported, the frozen bounds, and the
+traced window's arithmetic on hand-made events."""
 
 from __future__ import annotations
 
+import importlib
+import json
 import math
 import subprocess
 import sys
@@ -17,6 +21,13 @@ from benchmark import bounds, devtrace, harness
 from benchmark.reference import lanczos as ref
 
 CONF = harness.find_cell("perf8k-batch4-oncard").config
+SPEC = json.loads((harness.ROOT / "BENCHMARK.json").read_text())
+CONFIGS = [c["name"] for c in SPEC["configs"]]
+
+
+def first_cell(config: str) -> harness.Cell:
+    return harness.find_cell(next(w["name"] for w in SPEC["workloads"]
+                                  if w["config"] == config))
 
 
 def direct(img: np.ndarray, out_shape, a: int) -> np.ndarray:
@@ -73,14 +84,16 @@ def test_gap_is_zero_on_the_truncated_bytes_and_the_distance_outside():
     assert ref.gap_lsb(torch.tensor([0, 0, 12, 12, 254, 200], dtype=torch.uint8), r) == 99.0
 
 
-def test_the_reference_imports_nothing_of_the_program():
-    src = (harness.ROOT / "benchmark" / "reference" / "lanczos.py").read_text()
+@pytest.mark.parametrize("config", CONFIGS)
+def test_the_reference_imports_nothing_of_the_program(config):
+    conf = first_cell(config).config
+    src = (harness.ROOT / "benchmark" / "reference" / f"{conf['reference']}.py").read_text()
     assert "lanczos_torch" not in src.replace("of the program", "")
     code = textwrap.dedent(f'''
-        import sys, torch
+        import importlib, sys, torch
         sys.path.insert(0, {str(harness.ROOT)!r})
-        from benchmark.reference import lanczos
-        lanczos.exact(torch.zeros((1, 4, 4), dtype=torch.uint8), {CONF!r}, (8, 8))
+        ref = importlib.import_module("benchmark.reference." + {conf["reference"]!r})
+        ref.exact(torch.zeros((1, 4, 4), dtype=torch.uint8), {conf!r}, (8, 8))
         print(sorted({{m.split(".")[0] for m in sys.modules}}))
         ''')
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -88,6 +101,32 @@ def test_the_reference_imports_nothing_of_the_program():
     assert out.returncode == 0, out.stderr[-2000:]
     loaded = set(eval(out.stdout.strip().splitlines()[-1]))
     assert not loaded & {"lanczos_torch", *harness.FORBIDDEN}
+
+
+@pytest.mark.parametrize("config", CONFIGS)
+def test_judge_reads_the_same_gaps_from_the_reference_the_configuration_names(config):
+    """Each sampled output of a CPU window judged with the reference loaded
+    by the configuration's ``reference`` key and with the module imported
+    by its package path: bit-identical gaps."""
+    from .test_bm_harness import tiny
+
+    cell = first_cell(config)
+    conf = cell.config
+    cfg = harness.program_config(conf, tiny(cell))
+    ctx = harness.Context(cell, cfg, 2**31 + 29, [torch.device("cpu")] * cell.chips, False)
+    drv = harness.load(harness.ROOT, "drivers", cell.traffic["driver"]).Driver(ctx)
+    drv.setup()
+    sampler = harness.Sampler(4, 2**31 + 29)
+    drv.window(0.05, sampler)
+    drv.release()
+    named = harness.reference(cell)
+    imported = importlib.import_module("benchmark.reference." + conf["reference"])
+    assert named is not imported
+    limit = conf["limits"]["gap_lsb"]
+    for s in sampler.items():
+        got = [harness.judge(drv, [s], r, conf, cfg.out_shape, torch.device("cpu"), limit)
+               for r in (named, imported)]
+        assert got[0] == got[1] and got[0]["checked"] == 1, got
 
 
 def test_the_frozen_bounds_by_hand():
