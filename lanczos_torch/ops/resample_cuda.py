@@ -66,6 +66,7 @@ from lanczos_torch.ops.resample_phase_cuda import PhaseOps, phase_call
 from lanczos_torch.ops.resample_shift_cuda import (
     GATHER, ShiftOps, integer_scale, shift_call,
 )
+from lanczos_torch.utils.tracing import FUSED_RING, FUSED_TILE, span
 
 # Launches of the fused kernel by this process, per instantiation; only
 # fused_call adds to it, where it launches.
@@ -928,6 +929,15 @@ def fused_call(ops: FusedOps, x: torch.Tensor, wv: Optional[VerticalTables] = No
         return fused_resample_reference(
             x, ops.plan, cfg.precision, (oh, ow), cfg.dering, cfg.intermediate_quantize, wv
         )
+    return _launch(ops, x, wv)
+
+
+def _launch(ops: FusedOps, x: torch.Tensor, wv: Optional[VerticalTables]) -> torch.Tensor:
+    """:func:`fused_call`'s launch on the card, inside the span of the
+    kernel :func:`ring_shape` routes it to (``FUSED_RING`` or
+    ``FUSED_TILE``)."""
+    cfg = ops.cfg
+    (h, w), (oh, ow) = cfg.in_shape, cfg.out_shape
     if not x.is_contiguous():
         raise ValueError("the fused kernel needs a contiguous input")
     nc = x.shape[0]
@@ -941,7 +951,7 @@ def fused_call(ops: FusedOps, x: torch.Tensor, wv: Optional[VerticalTables] = No
     centers = [t["cv"].data_ptr(), t["ch"].data_ptr()] if cfg.dering else [None, None]
     pointers = [x.data_ptr(), out.data_ptr(), *(v.data_ptr() for v in t.values())]
     stages, blocks = ring_shape(a, w, oh, ow, pointers, cfg.dering)
-    with torch.cuda.device(x.device):
+    with span(FUSED_RING if stages else FUSED_TILE), torch.cuda.device(x.device):
         code = lib.lanczos_fused_resample(
             x.data_ptr(), out.data_ptr(), t["wv"].data_ptr(), t["wh"].data_ptr(),
             t["base_v"].data_ptr(), t["base_h"].data_ptr(),

@@ -26,7 +26,11 @@ The spans, by layer:
   :data:`LANE_WAIT` (the host blocked on an item's readback; empty on a
   CPU lane);
 - the sharding: :data:`SHARDED_CALL` (``ShardedUpscaler.__call__``:
-  scatter, per-card work, gather to the first card).
+  scatter, per-card work, gather to the first card);
+- the routing: :data:`FUSED_RING` and :data:`FUSED_TILE`, one around each
+  launch of the fused kernel on a card (``ops/resample_cuda.fused_call``),
+  named by the kernel ``ring_shape`` sent it to: the pipelined ring or the
+  one-tile kernel.  A CPU call runs the plain version and records neither.
 
 Spans of one item share no identifier: a lane pops in submit order, so the
 n-th :data:`LANE_SUBMIT` and the n-th :data:`LANE_WAIT` of a trace belong
@@ -46,6 +50,8 @@ LANE_HOST_COPY = "lanczos_torch.lane.host_copy"
 LANE_SUBMIT = "lanczos_torch.lane.submit"
 LANE_WAIT = "lanczos_torch.lane.wait"
 SHARDED_CALL = "lanczos_torch.sharded.call"
+FUSED_RING = "lanczos_torch.fused.ring"
+FUSED_TILE = "lanczos_torch.fused.tile"
 
 _OFF = contextlib.nullcontext()
 

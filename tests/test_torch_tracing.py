@@ -1,10 +1,14 @@
 """``lanczos_torch.utils.tracing`` on the CPU: with the profiler off a span
 site builds nothing; under ``torch.profiler`` the entry, the lane and the
 sharded call record their spans, once a call and nested as the layers
-are; the outputs do not change; ``profiling.trace`` writes each call's
-Chrome trace, spans included, into a directory of its own."""
+are, and a fused launch (the library stubbed) the span of the kernel its
+geometry routes it to; the outputs do not change; ``profiling.trace``
+writes each call's Chrome trace, spans included, into a directory of its
+own.  On a card, an 8K bf16 planar call records one ring span."""
 
+import contextlib
 import json
+import types
 from pathlib import Path
 
 import numpy as np
@@ -15,6 +19,8 @@ torch = pytest.importorskip("torch")
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 import lanczos_torch  # noqa: E402
+from lanczos_torch.ops import _build  # noqa: E402
+from lanczos_torch.ops import resample_cuda as rc  # noqa: E402
 from lanczos_torch.parallel.mesh import Mesh  # noqa: E402
 from lanczos_torch.parallel.sharded import ShardedUpscaler  # noqa: E402
 from lanczos_torch.utils import profiling, tracing  # noqa: E402
@@ -168,3 +174,80 @@ def test_trace_writes_each_call_into_a_directory_of_its_own(monkeypatch, tmp_pat
     for d in dirs:
         names = {e.get("name") for e in json.loads((d / "trace.json").read_text())["traceEvents"]}
         assert tracing.UPSCALER_CALL in names
+
+
+class _Library:
+    """The kernels' library with the launch stubbed: it records each
+    launch's ``(stages, blocks)`` and writes nothing."""
+
+    def __init__(self):
+        self.routes = []
+
+    def lanczos_fused_resample(self, *args):
+        self.routes.append(args[-3:-1])
+        return 0
+
+
+def _ops_as_on_a_card(in_shape, out_shape):
+    """A bf16 config's ``FusedOps`` on the CPU holding what a card's would
+    hold: the kernel's layout as tensors and its integer arguments."""
+    cfg = lanczos_torch.ResampleConfig.from_profile("precise", in_shape, out_shape=out_shape,
+                                                    a=3, precision="bf16")
+    ops = rc.FusedOps(cfg, "cpu")
+    lay = rc.kernel_layout(ops.plan, cfg.precision)
+    ops.tensors = {k: torch.from_numpy(v).clone() for k, v in lay.items()
+                   if isinstance(v, np.ndarray)}
+    ops.args = {k: v for k, v in lay.items() if isinstance(v, int)}
+    return ops
+
+
+@pytest.mark.parametrize("route,in_shape,out_shape", [
+    ("ring", (16, 32), (32, 64)),  # widths of whole 16-byte rows: the TMA ring
+    ("tile", (16, 20), (32, 40)),  # 20-byte input rows: the one-tile kernel
+])
+def test_a_fused_launch_records_the_span_of_its_route_while_profiling(
+        route, in_shape, out_shape, monkeypatch):
+    assert (tracing.FUSED_RING, tracing.FUSED_TILE) == (
+        "lanczos_torch.fused.ring", "lanczos_torch.fused.tile")
+    lib = _Library()
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(rc, "launches", dict(rc.launches))
+    monkeypatch.setattr(rc, "pipelined", dict(rc.pipelined))
+    ops = _ops_as_on_a_card(in_shape, out_shape)
+    x = torch.randint(0, 256, (3,) + in_shape, dtype=torch.uint8)
+
+    _, spans = _traced(lambda: rc._launch(ops, x, None))
+    want = {"ring": tracing.FUSED_RING, "tile": tracing.FUSED_TILE}[route]
+    assert [s[0] for s in spans] == [want]
+    assert (lib.routes[0][0] > 0) == (route == "ring")
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a record_function was built with the profiler off")
+
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    rc._launch(ops, x, None)
+    assert len(lib.routes) == 2 and rc.launches[ops.kernel] == 2
+    assert rc.pipelined[ops.kernel] == 2 * (route == "ring")
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+
+
+@pytest.mark.cuda
+def test_an_8k_bf16_planar_call_records_one_ring_span(card):
+    cfg = lanczos_torch.ResampleConfig.from_profile("precise", (2160, 3840), scale=(2, 1), a=3,
+                                                    precision="bf16")
+    model = lanczos_torch.Upscaler(cfg, backend="auto", device="cuda")
+    x = torch.randint(0, 256, (1, 3, 2160, 3840), dtype=torch.uint8, device="cuda")
+    model.planar(x)  # builds the kernels and uploads the tables
+    torch.cuda.synchronize()
+    _, spans = _traced(lambda: model.planar(x))
+    torch.cuda.synchronize()
+    assert [s[0] for s in spans if s[0].startswith("lanczos_torch.fused.")] == [tracing.FUSED_RING]
