@@ -65,6 +65,17 @@
 // copied only when its column strip changes.  Where the time goes (tools/probe_kernels.py
 // fused): the consumers' passes; the loads and the stores run under them.
 //
+// The ring's ILV form reads and writes interleaved frames (nc, H, W, C) -> (nc, OH, OW, C)
+// as they lie, so the wrapper launches no layout copy: a tile is all C channels of its
+// column block.  Its band arrives through a map over the frames' rows of W * C bytes; the
+// vertical pass sums down byte columns and never asks which channel a byte holds; the
+// horizontal pass reads pixel j's channel ch at intermediate column C * j + ch, a thread
+// tile being four pixels of one channel (the same taps in the same order as the planar
+// form); the staged quarters hold rows of cb * C interleaved bytes and leave through maps
+// over (nc, OH, OW * C).  Its plan has blocks of its own width (cb * C at most 256 bytes,
+// TMA's box limit, cb a multiple of 16 as for planes; resample_cuda.interleaved_block), with
+// tables the same for every channel.
+//
 // fused_resample_kernel, one tile a block: a grid of (column block, row tile, plane),
 // 256 threads, 64 registers so that four blocks share an SM.  All threads copy the band
 // (16-byte cp.async chunks, or bytes where W or the pointer is not 16-byte aligned) and
@@ -75,6 +86,7 @@
 //
 // Layouts (all row-major, contiguous; the wrapper checks them):
 //   x      (nc, H, W) uint8                   out    (nc, OH, OW) uint8
+//     (ILV: (nc, H, W, C) and (nc, OH, OW, C), bw and mw counted in bytes of C * kh)
 //   wv     (num_tiles, win_v, tile_p/4, 4) f32   base_v (num_tiles, tile_p/4) int32
 //   wh     (n_uniq, win_h, cb_p/4, 4) f32        base_h (n_uniq, cb_p/4) int32
 //   starts_v (num_tiles,) int32               starts_h, uniq_h (n_cb,) int32
@@ -107,6 +119,7 @@ struct Geometry {
   int stage_lg, chunk_lg;  // log2 of 16-byte chunks per staged row, per band row (rounded up)
   int vec_in, vec_out;     // 16-byte paths allowed by W, OW and the pointers
   int nrg_v_lg, nrg_h_lg;  // log2 of tile_p / 4 and tile_p / 8 where powers of two, else -1
+  int C;                   // channels of an interleaved frame (the ring's ILV form), else 1
 };
 
 // The ring kernel's shared memory, in bytes from a 1024-byte aligned base: the staged
@@ -120,6 +133,7 @@ struct Ring {
   int wv_off, wh_off, bv_off, bh_off, cv_off, ch_off, stage_bytes;
   int quarter, ring_off, mid_off, bar_off, smem;
   int swizzle;  // quarters of 128-byte rows, in TMA's 128-byte swizzle
+  int rw;       // bytes of a staged output row: cb, or cb * C interleaved
 };
 
 struct OutMaps {
@@ -303,6 +317,14 @@ struct QuarterStage {
   }
 };
 
+// the interleaved ring's staged tile: row r is row r >> 2 of quarter r & 3, rows of rw =
+// cb * C bytes, pixel c's channel ch at byte C * c + ch.  With rw = 16 mod 32 the eight row
+// groups of a warp's byte stores fall on eight disjoint runs of four banks
+struct InterleavedStage {
+  uint8_t* p;
+  int pitch, rw, C;
+};
+
 // step 2 of one tile, by threads tid, tid + kThreads, ...
 template <bool BF16, bool DERING, bool QUANT>
 __device__ __forceinline__ void vertical_pass(int tid, const uint8_t* band, const float4* wv_s,
@@ -352,20 +374,25 @@ __device__ __forceinline__ void vertical_pass(int tid, const uint8_t* band, cons
   }
 }
 
-// steps 3 and 4 (into the staged tile) of one tile
-template <bool DERING, class Stage>
+// steps 3 and 4 (into the staged tile) of one tile.  ILV: the intermediate's columns are
+// interleaved bytes, pixel j's channel ch at column C * j + ch (past dj), and a thread tile
+// is four pixels of one channel, so that each midT load still feeds its four outputs
+template <bool DERING, bool ILV, class Stage>
 __device__ __forceinline__ void horizontal_pass(int tid, const float* midT, const float4* wh_s,
                                                 const int* base_h_s, const int* ch_s, int dj,
                                                 const Geometry& g, const Stage& stage) {
   const int tile_p = g.tile_p, ncg = g.cb_p >> 2;
   const int nrg = tile_p >> 3, half = tile_p >> 1;
+  const int C = ILV ? g.C : 1, step = C * tile_p;  // midT floats from one pixel to the next
   float acc[8][4];
-  // thread tile = rows {4 rg.., half + 4 rg..} x one group of 4 columns
-  for (int t = tid; t < ncg * nrg; t += kThreads) {
+  // thread tile = rows {4 rg.., half + 4 rg..} x one group of 4 columns (of channel ch)
+  for (int t = tid; t < ncg * C * nrg; t += kThreads) {
     int cg, rg;
     split(t, nrg, g.nrg_h_lg, cg, rg);
-    const float* mrow = midT + dj * tile_p + 4 * rg;
-    const float* mp = mrow + base_h_s[cg] * tile_p;
+    const int ch = ILV ? cg % C : 0;
+    if (ILV) cg /= C;
+    const float* mrow = midT + (dj + ch) * tile_p + 4 * rg;
+    const float* mp = mrow + base_h_s[cg] * step;
     const float4* wp = wh_s + cg;
 #pragma unroll
     for (int m = 0; m < 8; ++m)
@@ -374,25 +401,39 @@ __device__ __forceinline__ void horizontal_pass(int tid, const float* midT, cons
 #pragma unroll 1
     for (int s = 0; s < g.win_h; ++s) {
       float a[8];
-      load8_f32(mp + s * tile_p, half, a);
+      load8_f32(mp + s * step, half, a);
       fma_tile(a, wp[s * ncg], acc);
     }
     if (DERING) {  // clamp to the stored midT rows of column 4 cg + n's central taps
 #pragma unroll
       for (int n = 0; n < 4; ++n) {
         float lo[8], hi[8];
-        load8_f32(mrow + ch_s[4 * cg + n] * tile_p, half, lo);
-        load8_f32(mrow + ch_s[g.cb_p + 4 * cg + n] * tile_p, half, hi);
+        load8_f32(mrow + ch_s[4 * cg + n] * step, half, lo);
+        load8_f32(mrow + ch_s[g.cb_p + 4 * cg + n] * step, half, hi);
 #pragma unroll
         for (int m = 0; m < 8; ++m) acc[m][n] = clamp_between(acc[m][n], lo[m], hi[m]);
       }
     }
-    uint8_t* s_lo = stage.at(4 * rg, cg);
-    uint8_t* s_hi = stage.at(half + 4 * rg, cg);
+    if constexpr (ILV) {  // the four pixels' bytes lie C apart
+      uint8_t* s_lo = stage.p + rg * stage.rw + C * 4 * cg + ch;
+      uint8_t* s_hi = s_lo + (half >> 2) * stage.rw;
 #pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      *reinterpret_cast<unsigned*>(s_lo + m * stage.pitch) = quantize4(acc[m]);
-      *reinterpret_cast<unsigned*>(s_hi + m * stage.pitch) = quantize4(acc[m + 4]);
+      for (int m = 0; m < 4; ++m) {
+        const unsigned lo = quantize4(acc[m]), hi = quantize4(acc[m + 4]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s_lo[m * stage.pitch + e * C] = (uint8_t)(lo >> (8 * e));
+          s_hi[m * stage.pitch + e * C] = (uint8_t)(hi >> (8 * e));
+        }
+      }
+    } else {
+      uint8_t* s_lo = stage.at(4 * rg, cg);
+      uint8_t* s_hi = stage.at(half + 4 * rg, cg);
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        *reinterpret_cast<unsigned*>(s_lo + m * stage.pitch) = quantize4(acc[m]);
+        *reinterpret_cast<unsigned*>(s_hi + m * stage.pitch) = quantize4(acc[m + 4]);
+      }
     }
   }
 }
@@ -479,8 +520,8 @@ __global__ void __launch_bounds__(kThreads, 4)
   vertical_pass<BF16, DERING, QUANT>(threadIdx.x, band, wv_s, base_v_s, cv_s, midT, c0 & 8, g);
   __syncthreads();
   const int mask = min(1 << g.stage_lg, 8) - 1;
-  horizontal_pass<DERING>(threadIdx.x, midT, wh_s, base_h_s, ch_s, c0 & 7, g,
-                          TileStage{stage, g.stage_w, mask});
+  horizontal_pass<DERING, false>(threadIdx.x, midT, wh_s, base_h_s, ch_s, c0 & 7, g,
+                                 TileStage{stage, g.stage_w, mask});
   __syncthreads();
 
   // the staged tile to the output, masked at the ragged bottom and right edges
@@ -508,7 +549,7 @@ __global__ void __launch_bounds__(kThreads, 4)
   }
 }
 
-template <bool BF16, bool DERING, bool QUANT>
+template <bool BF16, bool DERING, bool QUANT, bool ILV>
 __global__ void __launch_bounds__(kRingThreads, kRingBlocks)
     fused_resample_kernel_ring(const __grid_constant__ CUtensorMap in_map,
                                const __grid_constant__ OutMaps out_maps,
@@ -552,7 +593,8 @@ __global__ void __launch_bounds__(kRingThreads, kRingBlocks)
         int bytes = R.band_bytes + R.wv_bytes + R.bv_bytes + R.cv_bytes;
         if (new_h) bytes += R.wh_bytes + R.bh_bytes + R.ch_bytes;
         mbar_expect_tx(full + s, bytes);
-        tma_load_3d(st, &in_map, starts_h[b] & ~15, starts_v[i], p, full + s);
+        tma_load_3d(st, &in_map, (ILV ? g.C * starts_h[b] : starts_h[b]) & ~15, starts_v[i], p,
+                    full + s);
         bulk_load(st + R.wv_off, wv + (size_t)i * g.win_v * nrg_v, R.wv_bytes, full + s);
         bulk_load(st + R.bv_off, base_v + (size_t)i * nrg_v, R.bv_bytes, full + s);
         if (DERING) bulk_load(st + R.cv_off, cv + (size_t)i * 2 * g.tile_p, R.cv_bytes, full + s);
@@ -573,7 +615,7 @@ __global__ void __launch_bounds__(kRingThreads, kRingBlocks)
     for (int t = t0; t < t1; ++t) {
       int i, b, p;
       tile_of(t, g, i, b, p);
-      const int c0 = starts_h[b];
+      const int c0 = ILV ? g.C * starts_h[b] : starts_h[b];  // the band's first byte column
       const uint8_t* st = smem + R.ring_off + s * R.stage_bytes;
       uint8_t* staged = smem + (t - t0) % kStaged * 4 * R.quarter;  // in turn
       mbar_wait(full + s, n & 1);  // the tile's band and tables have landed
@@ -583,16 +625,22 @@ __global__ void __launch_bounds__(kRingThreads, kRingBlocks)
                                          c0 & 8, g);
       if (tid == 0) bulk_wait_read<kStaged - 1>();  // the last store from this staging has read it
       consumer_sync();
-      horizontal_pass<DERING>(tid, midT, reinterpret_cast<const float4*>(st + R.wh_off),
-                              reinterpret_cast<const int*>(st + R.bh_off),
-                              reinterpret_cast<const int*>(st + R.ch_off), c0 & 7, g,
-                              QuarterStage{staged, R.quarter, g.cb, R.swizzle});
+      if constexpr (ILV)
+        horizontal_pass<DERING, true>(tid, midT, reinterpret_cast<const float4*>(st + R.wh_off),
+                                      reinterpret_cast<const int*>(st + R.bh_off),
+                                      reinterpret_cast<const int*>(st + R.ch_off), c0 & 7, g,
+                                      InterleavedStage{staged, R.quarter, R.rw, g.C});
+      else
+        horizontal_pass<DERING, false>(tid, midT, reinterpret_cast<const float4*>(st + R.wh_off),
+                                       reinterpret_cast<const int*>(st + R.bh_off),
+                                       reinterpret_cast<const int*>(st + R.ch_off), c0 & 7, g,
+                                       QuarterStage{staged, R.quarter, g.cb, R.swizzle});
       fence_async_shared();
       consumer_sync();
       if (tid == 0) {
         mbar_arrive(empty + s);
         for (int q = 0; q < 4; ++q)
-          tma_store_3d(&out_maps.q[q], staged + q * R.quarter, b * g.cb, i * (g.tile >> 2), p);
+          tma_store_3d(&out_maps.q[q], staged + q * R.quarter, b * R.rw, i * (g.tile >> 2), p);
         bulk_commit();
       }
       if (++s == R.stages) s = 0, ++n;
@@ -644,12 +692,14 @@ Ring ring_layout(const Geometry& g, bool dering, int stages) {
   R.cv_off = R.bh_off + R.bh_bytes;
   R.ch_off = R.cv_off + R.cv_bytes;
   R.stage_bytes = round_up(R.ch_off + R.ch_bytes, 128);
-  R.quarter = round_up(g.tile_p / 4 * g.cb, 1024);
+  // quarters 1024-byte aligned for the swizzle, interleaved ones (never swizzled) to 128
+  R.rw = g.cb * g.C;
+  R.quarter = round_up(g.tile_p / 4 * R.rw, g.C > 1 ? 128 : 1024);
   R.ring_off = 4 * kStaged * R.quarter;
   R.mid_off = R.ring_off + stages * R.stage_bytes;
   R.bar_off = R.mid_off + 4 * g.mw * g.tile_p;
   R.smem = 1024 + R.bar_off + kMaxStages * (2 * 8 + 4);
-  R.swizzle = g.cb == 128;
+  R.swizzle = R.rw == 128 && g.C == 1;
   return R;
 }
 
@@ -700,21 +750,23 @@ int multiprocessors() {
   return count[dev];
 }
 
-template <bool BF16, bool DERING, bool QUANT>
+template <bool BF16, bool DERING, bool QUANT, bool ILV>
 cudaError_t launch_ring(const uint8_t* x, uint8_t* out, const void* wv, const void* wh,
                         const int* base_v, const int* base_h, const int* starts_v,
                         const int* starts_h, const int* uniq_h, const int* cv, const int* ch,
                         const Geometry& g, const Ring& R, int blocks, cudaStream_t stream) {
+  // rows of bytes: W (OW) a plane's row, or W * C (OW * C) an interleaved frame's
+  const int row = g.W * g.C, orow = g.OW * g.C;
   CUtensorMap in_map;
   OutMaps out_maps;
-  if (!encode_u8(&in_map, x, g.W, g.H, g.nc, (uint64_t)g.W, (uint64_t)g.H * g.W, g.bw, g.kv,
+  if (!encode_u8(&in_map, x, row, g.H, g.nc, (uint64_t)row, (uint64_t)g.H * row, g.bw, g.kv,
                  false))
     return cudaErrorInvalidValue;
   for (int q = 0; q < 4; ++q)
-    if (!encode_u8(&out_maps.q[q], out + (size_t)q * g.OW, g.OW, (g.OH - q + 3) / 4, g.nc,
-                   4ull * g.OW, (uint64_t)g.OH * g.OW, g.cb, g.tile / 4, R.swizzle))
+    if (!encode_u8(&out_maps.q[q], out + (size_t)q * orow, orow, (g.OH - q + 3) / 4, g.nc,
+                   4ull * orow, (uint64_t)g.OH * orow, R.rw, g.tile / 4, R.swizzle))
       return cudaErrorInvalidValue;
-  auto* kernel = fused_resample_kernel_ring<BF16, DERING, QUANT>;
+  auto* kernel = fused_resample_kernel_ring<BF16, DERING, QUANT, ILV>;
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, R.smem);
   if (e == cudaSuccess)  // all of the SM's 228 KB to shared memory, so that `blocks` fit
@@ -740,7 +792,10 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }  // namespace
 
 // stages > 0 runs the ring kernel with that many stages and `blocks` blocks an SM (the
-// wrapper's resample_cuda.ring_shape chooses both), 0 the one-tile-a-block kernel
+// wrapper's resample_cuda.ring_shape chooses both), 0 the one-tile-a-block kernel.
+// channels > 1 (the ring only): x is (nc, H, W, channels) and out (nc, OH, OW, channels),
+// interleaved, each tile all channels of its column block, on a plan of its own block width
+// (resample_cuda.interleaved_block)
 extern "C" int lanczos_fused_resample(const void* x, void* out, const void* wv, const void* wh,
                                       const void* base_v, const void* base_h,
                                       const void* starts_v, const void* starts_h,
@@ -749,12 +804,14 @@ extern "C" int lanczos_fused_resample(const void* x, void* out, const void* wv, 
                                       int tile_p, int kv, int cb, int cb_p, int kh, int win_v,
                                       int win_h, int bw, int mw, int stage_w, int n_cb,
                                       int num_tiles, int bf16, int dering, int quant,
-                                      int stages, int blocks, void* stream) {
-  if (tile_p % 8 || cb_p % 4 || bw % 16 || mw % 8 || bw < mw + 8 || mw < kh + 7 ||
-      stage_w != 16 << ceil_log2(stage_w / 16) || stage_w < cb_p)
+                                      int channels, int stages, int blocks, void* stream) {
+  const int C = channels > 1 ? channels : 1;
+  if (tile_p % 8 || cb_p % 4 || bw % 16 || mw % 8 || bw < mw + 8 || mw < C * kh + 7 ||
+      stage_w != 16 << ceil_log2(stage_w / 16) || stage_w < cb_p || (C > 1 && stages < 1))
     return (int)cudaErrorInvalidValue;
   Geometry g{H, W, OH, OW, tile, tile_p, kv, cb, cb_p, kh, win_v, win_h, bw, mw, stage_w,
              nc, n_cb, num_tiles};
+  g.C = C;
   g.stage_lg = ceil_log2(stage_w / 16);
   g.chunk_lg = ceil_log2(bw / 16);
   g.vec_in = W % 16 == 0 && aligned16(x);
@@ -786,15 +843,23 @@ extern "C" int lanczos_fused_resample(const void* x, void* out, const void* wv, 
   if (stages > 0) {
     // what TMA and the ring need (resample_cuda.ring_shape asks the same of a launch)
     const Ring R = ring_layout(g, dering != 0, stages);
-    if (stages > kMaxStages || blocks < 1 || blocks > kRingBlocks || W % 16 || OW % 16 ||
-        cb % 16 || cb > 256 || tile % 4 || tile_p % 16 || bw > 256 || kv > 256 || OH < 4 ||
+    if (stages > kMaxStages || blocks < 1 || blocks > kRingBlocks || W * C % 16 ||
+        OW * C % 16 || cb % 16 || R.rw > 256 || tile % 4 || tile_p % 16 || bw > 256 ||
+        kv > 256 || OH < 4 ||
         !aligned16(x) || !aligned16(out) || !aligned16(wv) || !aligned16(wh) ||
         !aligned16(base_v) || !aligned16(base_h) || (dering && (!aligned16(cv) || !aligned16(ch))) ||
         R.smem > kRingSmem)
       return (int)cudaErrorInvalidValue;
 #define LANCZOS_RING(B, D, Q) \
-  launch_ring<B, D, Q>(xs, os, wv, wh, bv, bh, sv, sh, uh, cvs, chs, g, R, blocks, st)
-    LANCZOS_SWITCH(LANCZOS_RING)
+  launch_ring<B, D, Q, false>(xs, os, wv, wh, bv, bh, sv, sh, uh, cvs, chs, g, R, blocks, st)
+#define LANCZOS_RING_ILV(B, D, Q) \
+  launch_ring<B, D, Q, true>(xs, os, wv, wh, bv, bh, sv, sh, uh, cvs, chs, g, R, blocks, st)
+    if (C > 1) {
+      LANCZOS_SWITCH(LANCZOS_RING_ILV)
+    } else {
+      LANCZOS_SWITCH(LANCZOS_RING)
+    }
+#undef LANCZOS_RING_ILV
 #undef LANCZOS_RING
   } else {
 #define LANCZOS_LAUNCH(B, D, Q) \

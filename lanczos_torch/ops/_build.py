@@ -102,7 +102,7 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed (once per process)."""
     lib = ctypes.CDLL(str(build()))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.lanczos_fused_resample.argtypes = [ptr] * 11 + [i32] * 23 + [ptr]
+    lib.lanczos_fused_resample.argtypes = [ptr] * 11 + [i32] * 24 + [ptr]
     lib.lanczos_fused_resample.restype = i32
     lib.lanczos_shift_resample.argtypes = [ptr] * 8 + [i32] * 11 + [ptr]
     lib.lanczos_shift_resample.restype = i32

@@ -44,7 +44,12 @@ fused plan, take kernel 2 for integer scales and v1
 (``resample_phase_cuda``) for the rest.
 
 On a CUDA tensor :func:`fused_call` launches the kernel; on a CPU tensor it
-runs :func:`fused_resample_reference`, which walks the same plan.
+runs :func:`fused_resample_reference`, which walks the same plan.  The
+interleaved API (:func:`resample_2d_cuda`) hands contiguous (B, H, W, C)
+frames on the card to the ring kernel's interleaved form
+(:func:`interleaved_call`, on a plan of :func:`interleaved_block` columns),
+which reads and writes them as they lie; other frames go through planar
+layout.
 """
 
 from __future__ import annotations
@@ -76,6 +81,9 @@ launches = {
 }
 # Of those, the launches that ran the pipelined kernel (``ring_shape``).
 pipelined = dict.fromkeys(launches, 0)
+# Of those, the launches that read and wrote interleaved (B, H, W, C) frames as
+# they lie (``interleaved_call``).
+interleaved = dict.fromkeys(launches, 0)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -127,19 +135,20 @@ class FusedPlan:
         return sizes["band"] + sizes["mid"] + sizes["stage"] + tables
 
 
-def smem_layout(tile: int, kv: int, cb: int, kh: int) -> dict:
+def smem_layout(tile: int, kv: int, cb: int, kh: int, channels: int = 1) -> dict:
     """Sizes of the band, the intermediate and the staged tile in one
     block's shared memory, as the kernel lays them out.
 
     ``mw``: columns of the intermediate, which starts at the 8-column
     boundary at or below the block's first tap (so up to 7 columns before
-    it).  ``bw``: bytes of a band row: the band starts at the 16-byte
+    it); an interleaved tile's columns are the bytes of ``channels`` ×
+    ``kh``.  ``bw``: bytes of a band row: the band starts at the 16-byte
     boundary at or below ``starts_h[b]``, so up to 8 more; a stride that is
     a multiple of 32 bytes would put every fourth row on the same banks, so
     such a stride grows by 16.  ``stage_w``: bytes of a staged output row, a
     power of two of 16-byte chunks (the kernel swizzles chunks by row)."""
     tile_p, cb_p = _round_up(tile, 8), _round_up(cb, 4)
-    mw = _round_up(kh + 7, 8)
+    mw = _round_up(channels * kh + 7, 8)
     bw = _round_up(mw + 8, 16)
     if bw % 32 == 0:
         bw += 16
@@ -175,8 +184,12 @@ def build_fused_plan(
     off_v: int,
     cb_target: int = 128,
     kv: int = 0,
+    block: int = 0,
 ) -> Optional[FusedPlan]:
     """Plan from prebuilt banded operators (``_build_mxu_plan``'s meaning).
+
+    Column blocks of :func:`_block_width` up to ``cb_target``, or of exactly
+    ``block`` columns where given (the interleaved ring's plans).
 
     ``cfg`` supplies the shapes and, through ``cfg.dering``, whether the
     plan carries the central-tap offsets.  The vertical band of tile ``i``
@@ -221,7 +234,7 @@ def build_fused_plan(
         starts_v[i] = start
 
     # ---- horizontal blocks ----
-    cb = _block_width(nh, cb_target)
+    cb = block or _block_width(nh, cb_target)
     n_cb = -(-ow // cb)
     kh = 0
     for b in range(n_cb):
@@ -303,6 +316,37 @@ def fused_plan(cfg: ResampleConfig) -> Optional[FusedPlan]:
         if plan is not None:
             return plan
     return None
+
+
+def store_ways(row: int) -> int:
+    """How many of the eight row groups that a warp's byte stores write at
+    once share a bank, in staged rows of ``row`` bytes (a multiple of 16):
+    1 where ``row`` is 16 modulo 32 (the groups fall on eight disjoint runs
+    of four banks), 8 where it is a multiple of 128."""
+    return max(1, 8 * math.gcd(row // 4, 32) // 32)
+
+
+def interleaved_block(channels: int) -> int:
+    """Output columns a block of the interleaved ring for frames of
+    ``channels`` channels: of the multiples of 16 (a block's window bases
+    leave as bulk copies of whole 16-byte chunks) whose staged rows, ``cb ·
+    channels`` bytes, are at most 256 (TMA's box limit), the widest of
+    those with the fewest :func:`store_ways` (80 columns of RGB, 48 of
+    RGBA: the fastest in ``tools/probe_kernels.py interleaved``); 0 where
+    none is."""
+    widths = range(16, 256 // channels + 1, 16)
+    return min(widths, key=lambda cb: (store_ways(cb * channels), -cb), default=0)
+
+
+@functools.lru_cache(maxsize=8)
+def interleaved_plan(cfg: ResampleConfig, tile: int, channels: int,
+                     block: int = 0) -> Optional[FusedPlan]:
+    """The interleaved ring's plan: ``tile``-row tiles (the fused plan's),
+    in blocks of :func:`interleaved_block` columns (or ``block``), or None
+    where none fits.  Every output takes the same taps in the same order on
+    any block width, so its bytes are the fused plan's."""
+    cb = block or interleaved_block(channels)
+    return build_fused_plan(cfg, tile, *_operators(cfg), block=cb) if cb else None
 
 
 def plan_from_reference(fields: dict) -> FusedPlan:
@@ -546,9 +590,10 @@ def fused_resample_reference(
 # ---------------------------------------------------------------------------
 
 
-def kernel_layout(plan: FusedPlan, precision: Precision) -> dict:
+def kernel_layout(plan: FusedPlan, precision: Precision, channels: int = 1) -> dict:
     """Host arrays in the CUDA kernel's layout, and its integer launch
-    arguments.
+    arguments (``channels`` > 1: the ring's interleaved form, whose band
+    and intermediate hold ``channels`` bytes a column).
 
     The weights are :func:`group_windows` of :func:`plan_weights`' matrices,
     rows padded with zeros to ``tile_p = round_up(tile, 8)`` and columns to
@@ -561,7 +606,7 @@ def kernel_layout(plan: FusedPlan, precision: Precision) -> dict:
     (n_uniq, 2, cb_p)`` zero-padded alike, and :func:`smem_layout`'s
     sizes.  The vertical half is :func:`vertical_layout`'s."""
     tile, cb = plan.tile_out, plan.cb
-    sizes = smem_layout(tile, plan.kv, cb, plan.kh)
+    sizes = smem_layout(tile, plan.kv, cb, plan.kh, channels)
     cb_p = sizes["cb_p"]
     wh = _kernel_weights(plan.wh, 1, precision)
     whp = np.zeros((wh.shape[0], cb_p, plan.kh), np.float32)
@@ -579,7 +624,7 @@ def kernel_layout(plan: FusedPlan, precision: Precision) -> dict:
         uniq_h=plan.uniq_h.astype(np.int32),
         tile=tile, cb=cb, cb_p=cb_p, kh=plan.kh,
         win_h=win_h.shape[2], bw=sizes["bw"], mw=sizes["mw"],
-        stage_w=sizes["stage_w"], n_cb=plan.n_cb,
+        stage_w=sizes["stage_w"], n_cb=plan.n_cb, channels=channels,
         **centers,
     )
 
@@ -599,13 +644,15 @@ def ring_layout(a: dict, dering: bool) -> dict:
     bases and, for dering, central-tap offsets, and the horizontal ones of
     its column block; a multiple of 128), and ``fixed``, the rest (the
     staged output, :data:`RING_STAGED` tiles of four 1024-byte aligned
-    quarters; the fp32 intermediate; the barriers; 1024 bytes to align the
-    base).  A block of ``S`` stages takes ``fixed + S * stage``."""
-    tile_p, cb_p = a["tile_p"], a["cb_p"]
+    quarters, of 128 where interleaved (never swizzled), each ``tile / 4``
+    rows of ``cb · channels`` bytes; the fp32 intermediate; the barriers;
+    1024 bytes to align the base).  A block of ``S`` stages takes ``fixed +
+    S * stage``."""
+    tile_p, cb_p, c = a["tile_p"], a["cb_p"], a["channels"]
     tables = 4 * (a["win_v"] * tile_p + a["win_h"] * cb_p) + tile_p + cb_p
     if dering:
         tables += 8 * (tile_p + cb_p)
-    quarter = _round_up(tile_p // 4 * a["cb"], 1024)
+    quarter = _round_up(tile_p // 4 * a["cb"] * c, 1024 if c == 1 else 128)
     fixed = (1024 + 4 * RING_STAGED * quarter + 4 * a["mw"] * tile_p
              + RING_STAGES * (2 * 8 + 4))
     return dict(stage=_round_up(a["kv"] * a["bw"] + tables, 128), fixed=fixed)
@@ -615,18 +662,20 @@ def ring_shape(a: dict, w: int, oh: int, ow: int, pointers, dering: bool) -> tup
     """``(stages, blocks an SM)`` of the pipelined kernel for one launch,
     or ``(0, 0)`` where it cannot run and the one-tile-a-block kernel
     takes the launch: TMA addresses rows of whole 16-byte chunks from
-    16-byte aligned tensors (``W``, ``OW`` and the block width multiples of
-    16, every pointer aligned), boxes of at most 256 a side (the band's
-    ``bw`` bytes by ``kv`` rows, the output's ``cb`` by ``tile / 4``), and
-    the output leaves in quarters of rows 4k + q (``tile`` a multiple of 4,
+    16-byte aligned tensors (``W`` and ``OW``, times the layout's
+    ``channels``, and the block width multiples of 16, every pointer
+    aligned), boxes of at most 256 a side (the band's ``bw`` bytes by
+    ``kv`` rows, the output's ``cb · channels`` by ``tile / 4``), and the
+    output leaves in quarters of rows 4k + q (``tile`` a multiple of 4,
     at least 4 output rows; the tables' rows, ``tile_p`` bytes of window
     bases, are bulk copies of 16-byte multiples).  The most blocks an SM
     (three, two or one) of which each holds a ring of two stages; as many
     stages as fit, up to :data:`RING_STAGES`.  A pure function of the
     launch's geometry, ``a`` being :func:`kernel_layout`'s integer
     fields."""
-    tile, tile_p, cb = a["tile"], a["tile_p"], a["cb"]
-    if (w % 16 or ow % 16 or cb % 16 or cb > 256 or tile % 4 or tile_p % 16
+    tile, tile_p, c = a["tile"], a["tile_p"], a["channels"]
+    row = a["cb"] * c
+    if (w * c % 16 or ow * c % 16 or a["cb"] % 16 or row > 256 or tile % 4 or tile_p % 16
             or a["bw"] > 256 or a["kv"] > 256 or oh < 4
             or any(ptr % 16 for ptr in pointers)):
         return 0, 0
@@ -804,7 +853,9 @@ class FusedOps:
     what runs; of ``plan`` (the fused plan), ``shift`` (kernel 2's ops) and
     ``phase`` (v1's ops) one is set and the others are None.  On CUDA the
     fused weights are uploaded once in the kernel's layout
-    (:func:`kernel_layout`); on the CPU the plain versions run."""
+    (:func:`kernel_layout`), and those of the ring's interleaved form once
+    for each channel count a call brings (:meth:`interleaved_layout`); on
+    the CPU the plain versions run."""
 
     def __init__(
         self, cfg: ResampleConfig, device="cuda", plan: Optional[FusedPlan] = None,
@@ -825,6 +876,7 @@ class FusedOps:
         elif self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {self.device}")
         self.tr_ops = self.shift = self.phase = self.tensors = self.args = None
+        self._interleaved: dict = {}
         tcfg = _plan_cfg(cfg)
         if tcfg is not cfg:
             if variant == "auto" and plan is None and fused_plan(tcfg) is None:
@@ -867,6 +919,34 @@ class FusedOps:
                 for k, v in lay.items() if isinstance(v, np.ndarray)
             }
             self.args = {k: v for k, v in lay.items() if isinstance(v, int)}
+
+    def interleaved_layout(self, channels: int) -> Optional[tuple]:
+        """``(tensors, args)`` of the ring's interleaved form for frames of
+        ``channels`` channels (:func:`interleaved_plan`'s tables on this
+        card, uploaded at the first call), or None where the route does not
+        apply: the CPU, another kernel, a width-first nonlinear config (the
+        transposed image), one channel (its frames are already planes), no
+        plan, or a plan other than the config's own (a chunk's or a shard's,
+        whose operators the config does not give)."""
+        if (self.device.type != "cuda" or self.variant != "mxu" or self.tr_ops is not None
+                or channels < 2):
+            return None
+        if channels not in self._interleaved:
+            plan = (interleaved_plan(self.cfg, self.plan.tile_out, channels)
+                    if self.plan is fused_plan(self.cfg) else None)
+            self._interleaved[channels] = plan and interleaved_tables(
+                plan, self.cfg.precision, channels, self.device)
+        return self._interleaved[channels]
+
+
+def interleaved_tables(plan: FusedPlan, precision: Precision, channels: int,
+                       device) -> tuple:
+    """``(tensors, args)``: an interleaved plan's kernel layout on
+    ``device`` and its integer arguments."""
+    lay = kernel_layout(plan, precision, channels)
+    return ({k: torch.from_numpy(v).to(device) for k, v in lay.items()
+             if isinstance(v, np.ndarray)},
+            {k: v for k, v in lay.items() if isinstance(v, int)})
 
 
 def make_fused_ops(cfg: ResampleConfig, plan: FusedPlan, device="cuda") -> FusedOps:
@@ -933,40 +1013,71 @@ def fused_call(ops: FusedOps, x: torch.Tensor, wv: Optional[VerticalTables] = No
 
 
 def _launch(ops: FusedOps, x: torch.Tensor, wv: Optional[VerticalTables]) -> torch.Tensor:
-    """:func:`fused_call`'s launch on the card, inside the span of the
-    kernel :func:`ring_shape` routes it to (``FUSED_RING`` or
-    ``FUSED_TILE``)."""
-    cfg = ops.cfg
-    (h, w), (oh, ow) = cfg.in_shape, cfg.out_shape
+    """:func:`fused_call`'s launch on the card, to the kernel
+    :func:`ring_shape` routes it to."""
+    (h, w), (oh, ow) = ops.cfg.in_shape, ops.cfg.out_shape
     if not x.is_contiguous():
         raise ValueError("the fused kernel needs a contiguous input")
     nc = x.shape[0]
     if nc > 65535:
         raise ValueError(f"{nc} planes exceed gridDim.z")
-    lib = _build.library()
     out = torch.empty((nc, oh, ow), dtype=torch.uint8, device=x.device)
-    t, a = ops.tensors, ops.args
-    if wv is not None:
-        t = dict(t, **wv.tensors)
-    centers = [t["cv"].data_ptr(), t["ch"].data_ptr()] if cfg.dering else [None, None]
+    t = ops.tensors if wv is None else dict(ops.tensors, **wv.tensors)
     pointers = [x.data_ptr(), out.data_ptr(), *(v.data_ptr() for v in t.values())]
-    stages, blocks = ring_shape(a, w, oh, ow, pointers, cfg.dering)
+    _run(ops, x, out, t, ops.args, ring_shape(ops.args, w, oh, ow, pointers, ops.cfg.dering))
+    return out
+
+
+def interleaved_call(ops: FusedOps, x: torch.Tensor) -> Optional[torch.Tensor]:
+    """(B, H, W, C) uint8 on the card → (B, OH, OW, C) uint8 through the
+    ring kernel's interleaved form, which reads and writes the frames as
+    they lie; None where the route does not apply
+    (:meth:`FusedOps.interleaved_layout`, a tensor that is not ``ops``'s
+    contiguous uint8 frames) or :func:`ring_shape` finds it does not fit
+    the launch, and the caller goes through planar layout."""
+    if x.dim() != 4 or x.dtype != torch.uint8 or x.device != ops.device:
+        return None
+    (h, w), (oh, ow) = ops.cfg.in_shape, ops.cfg.out_shape
+    layout = ops.interleaved_layout(x.shape[3])
+    if layout is None or tuple(x.shape[1:3]) != (h, w) or not x.is_contiguous():
+        return None
+    t, a = layout
+    out = torch.empty((x.shape[0], oh, ow, x.shape[3]), dtype=torch.uint8, device=x.device)
+    pointers = [x.data_ptr(), out.data_ptr(), *(v.data_ptr() for v in t.values())]
+    route = ring_shape(a, w, oh, ow, pointers, ops.cfg.dering)
+    if not route[0]:
+        return None
+    _run(ops, x, out, t, a, route)
+    interleaved[ops.kernel] += 1
+    return out
+
+
+def _run(ops: FusedOps, x: torch.Tensor, out: torch.Tensor, t: dict, a: dict,
+         route: tuple) -> None:
+    """One launch of ``ops``'s kernel on tables ``t`` and integer
+    arguments ``a``, inside the span of the kernel ``route`` (``(stages,
+    blocks)``, :func:`ring_shape`) names (``FUSED_RING`` or
+    ``FUSED_TILE``), counted."""
+    cfg = ops.cfg
+    (h, w), (oh, ow) = cfg.in_shape, cfg.out_shape
+    stages, blocks = route
+    centers = [t["cv"].data_ptr(), t["ch"].data_ptr()] if cfg.dering else [None, None]
+    lib = _build.library()
     with span(FUSED_RING if stages else FUSED_TILE), torch.cuda.device(x.device):
         code = lib.lanczos_fused_resample(
             x.data_ptr(), out.data_ptr(), t["wv"].data_ptr(), t["wh"].data_ptr(),
             t["base_v"].data_ptr(), t["base_h"].data_ptr(),
             t["starts_v"].data_ptr(), t["starts_h"].data_ptr(),
-            t["uniq_h"].data_ptr(), *centers, nc, h, w, oh, ow, a["tile"],
+            t["uniq_h"].data_ptr(), *centers, x.shape[0], h, w, oh, ow, a["tile"],
             a["tile_p"], a["kv"], a["cb"], a["cb_p"], a["kh"], a["win_v"], a["win_h"],
             a["bw"], a["mw"], a["stage_w"], a["n_cb"], a["num_tiles"],
             int(cfg.precision == Precision.BF16), int(cfg.dering),
-            int(cfg.intermediate_quantize), stages, blocks,
+            int(cfg.intermediate_quantize), a["channels"], stages, blocks,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     _build.check(code)
     launches[ops.kernel] += 1
     pipelined[ops.kernel] += stages > 0
-    return out
 
 
 def upscale_planar(img: torch.Tensor, ops: FusedOps) -> torch.Tensor:
@@ -990,9 +1101,13 @@ def upscale_planar(img: torch.Tensor, ops: FusedOps) -> torch.Tensor:
 
 
 def resample_2d_cuda(img: torch.Tensor, ops: FusedOps) -> torch.Tensor:
-    """Interleaved API: (..., H, W, C) uint8 → (..., OH, OW, C) uint8,
-    through planar layout at the boundary."""
+    """Interleaved API: (..., H, W, C) uint8 → (..., OH, OW, C) uint8: the
+    ring kernel on the frames as they lie wherever :func:`interleaved_call`
+    takes them (contiguous frames on the card), else through planar layout
+    at the boundary (the copy into planes and the permute back)."""
     lead = img.shape[:-3]
-    x = img.reshape((-1,) + tuple(img.shape[-3:])).permute(0, 3, 1, 2)
-    y = upscale_planar(x, ops).permute(0, 2, 3, 1)
+    x = img.reshape((-1,) + tuple(img.shape[-3:]))
+    y = interleaved_call(ops, x) if img.is_contiguous() else None
+    if y is None:
+        y = upscale_planar(x.permute(0, 3, 1, 2), ops).permute(0, 2, 3, 1)
     return y.reshape(tuple(lead) + tuple(y.shape[1:]))

@@ -1,6 +1,6 @@
 """Where the time of the redesigned kernels goes, on the H100.
 
-    python -m lanczos_torch.tools.probe_kernels [fused] [shift] [sweep] [phase]
+    python -m lanczos_torch.tools.probe_kernels [fused] [shift] [sweep] [phase] [interleaved]
 
 (``stream`` and ``window`` are the two halves of ``phase``.)
 
@@ -28,6 +28,14 @@ only its time and its registers are read.
   registers), ``staged3`` stages three output tiles a block (two stages),
   ``tile`` forces the one-tile-a-block kernel on the same launch;
   ``unroll_h2`` and ``unroll_v4`` unroll the step loops further.
+
+``interleaved``: the ring on a batch of four RGB and of four RGBA frames
+(``quality4k-batch4-upscale``'s batch at 3/2, and 4K→8K at 2/1): the planar
+ring on their planes, then the ring's interleaved form on the four (B, H, W,
+C) frames as they lie, at each block width tried (``INTERLEAVED_BLOCKS``;
+the production one is ``resample_cuda.interleaved_block``), each line with
+the ring's stages and blocks an SM and whether its bytes equal the planar
+ring's.
 
 ``shift`` (kernel 2, dering): ``empty``, ``loads``, ``novert``,
 ``nohoriz``, and ``threads256`` (blocks of 256 threads, three an SM).
@@ -60,6 +68,7 @@ registers and spills of every probe.
 from __future__ import annotations
 
 import ctypes
+import itertools
 import subprocess
 import sys
 import tempfile
@@ -83,7 +92,7 @@ _ENTRY_S = "  extern __shared__ uint4 smem16[];\n  const int s = S > 0 ? S : g.s
 _RETURN = "  if (g.H > 0) return;\n"
 _NEVER = "if (g.H < 0) "  # false at run time: the code stays, its work does not run
 _VERT = "      vertical_pass<BF16, DERING, QUANT>(tid, st,"
-_HORIZ = "      horizontal_pass<DERING>(tid, midT,"
+_HORIZ = "        horizontal_pass<DERING, false>(tid, midT,"  # the planar ring's
 _STORE = "        for (int q = 0; q < 4; ++q)\n          tma_store_3d("
 _NO_STORE = (_STORE, "        for (int q = 0; q < 4 * (g.H < 0); ++q)\n          tma_store_3d(")
 _RING = "const Ring R = ring_layout(g, dering != 0, stages);"
@@ -171,6 +180,8 @@ PHASE_SHAPES = (("8K->480x270", (4320, 7680), (270, 480)),
 SWEEP = ((64, 128), (64, 256), (128, 128), (96, 128), (32, 256), (32, 128), (128, 256))
 SWEEP_32 = ((64, 96), (64, 48), (128, 96), (32, 96), (64, 144), (64, 192))  # 3/2: multiples of 48
 QUALITY_IN = (1440, 2560)  # FSR Quality, 1440p -> 4K
+# channels -> block widths: staged rows of 96, 144, 192 and 240 bytes (RGB), 128, 192, 256 (RGBA)
+INTERLEAVED_BLOCKS = {3: (32, 48, 64, 80), 4: (32, 48, 64)}
 SOURCES = {"lanczos_fused_resample": "fused_resample.cu",
            "lanczos_shift_resample": "shift_resample.cu",
            **{fn: "phase_resample.cu" for fn in (
@@ -323,7 +334,37 @@ def probe_phase(lib, tmp: Path, smi: str, designs=("stream", "window")) -> None:
                 print(f"{tag}: window run-time form {t:.4f} ms", flush=True)
 
 
-GROUPS = ("fused", "shift", "sweep", "phase", "stream", "window")
+def probe_interleaved(lib, smi: str) -> None:
+    """The ``interleaved`` group: ms a frame of the planar ring and of the
+    interleaved ring at each block width, on batches of four frames."""
+    fn = "lanczos_fused_resample"
+    for (name, make, shape), c in itertools.product(
+            (("3/2", quality_cfg, QUALITY_IN), ("2/1", frame_cfg, FRAME_IN)), INTERLEAVED_BLOCKS):
+        cfg = make()
+        frames = torch.from_numpy(
+            np.random.default_rng(0).integers(0, 256, (4,) + shape + (c,), np.uint8)).cuda()
+        planes = frames.permute(0, 3, 1, 2).reshape(4 * c, *shape).contiguous()
+        ops = rc.FusedOps(cfg, "cuda")
+        a, want = launch_args(fn, lambda: rc.fused_call(ops, planes))
+        want = want.reshape(4, c, *cfg.out_shape).permute(0, 2, 3, 1)
+        print(f"interleaved {name} C={c}: planar ring {time_ms(getattr(lib, fn), a) / 4:.4f} ms "
+              f"a frame (block {ops.plan.cb}), {ring_of(a)} [{smi}]", flush=True)
+        for cb in INTERLEAVED_BLOCKS[c]:
+            ops_i = rc.FusedOps(cfg, "cuda")
+            # the layout of this block width in place of the production one
+            plan = rc.interleaved_plan(cfg, ops.plan.tile_out, c, cb)
+            ops_i._interleaved[c] = plan and rc.interleaved_tables(plan, cfg.precision, c, "cuda")
+            tag = f"interleaved {name} C={c} block {cb}" + (
+                " (production)" if cb == rc.interleaved_block(c) else "")
+            if ops_i._interleaved[c] is None or rc.interleaved_call(ops_i, frames) is None:
+                print(f"{tag}: not on the ring", flush=True)
+                continue
+            a, got = launch_args(fn, lambda o=ops_i: rc.interleaved_call(o, frames))
+            print(f"{tag}: {time_ms(getattr(lib, fn), a) / 4:.4f} ms a frame, {ring_of(a)}, "
+                  f"bytes {'equal' if torch.equal(got, want) else 'DIFFER'}", flush=True)
+
+
+GROUPS = ("fused", "shift", "sweep", "phase", "interleaved", "stream", "window")
 
 
 def main(argv=None) -> int:
@@ -381,6 +422,8 @@ def main(argv=None) -> int:
             for probe, subs in SHIFT_PROBES.items():
                 f, info = build_probe(fn, subs, Path(tmp), f"shift_{probe}")
                 print(f"shift probe {probe}: dering {time_ms(f, a):.4f} ms ({info})", flush=True)
+        if "interleaved" in what:
+            probe_interleaved(lib, smi)
         designs = {"stream", "window"} & what if "phase" not in what else ("stream", "window")
         if designs:
             probe_phase(lib, Path(tmp), smi, tuple(designs))
