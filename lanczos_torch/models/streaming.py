@@ -13,7 +13,7 @@ Device formulations, fastest first (``chunk_backend="auto"`` takes the
 first whose gates pass; ``chunk_path`` names the one that runs):
 
 1. ``"fused"`` (``chunk_backend="mxu"``): the fused CUDA kernel
-   (``ops/resample_cuda.fused_call``) on one hand-built chunk plan.  With
+   (``ops/resample_cuda.upscale_frames``) on one hand-built chunk plan.  With
    ``chunk ≡ 0 (mod N)`` every chunk shares one phase pattern, so an
    interior slice of a virtual tall operator serves all chunks, and the
    kernel's band-start formula picks it up through a constant offset
@@ -58,9 +58,9 @@ from lanczos_torch.ops.resample_cuda import (
     FusedOps,
     _round_bf16,
     build_fused_plan,
-    fused_call,
     make_fused_ops,
     plan_from_reference,
+    upscale_frames,
 )
 from lanczos_torch.ops.resample_gather import (
     apply_banded,
@@ -272,8 +272,7 @@ class StreamingUpscaler:
 
     def _chunk_fn_fused(self, rows: torch.Tensor) -> torch.Tensor:
         """rows: (win, W, C) uint8 window, edge pads applied host-side."""
-        x = rows.permute(2, 0, 1).contiguous()
-        return fused_call(self._mxu, x).permute(1, 2, 0)
+        return upscale_frames(rows[None], self._mxu)[0]
 
     def _chunk_fn_gather(self, rows, idx_v, w_v) -> torch.Tensor:
         """rows: (win, W, C) input window; idx_v rebased to the window."""

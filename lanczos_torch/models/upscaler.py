@@ -183,8 +183,7 @@ class Upscaler:
     def _make(self, device: torch.device):
         cfg = self.cfg
         if self.path == "cuda":
-            plan = self._ops[torch.device("cpu")].plan if self._ops else None
-            return FusedOps(cfg, device, plan, self.variant)
+            return FusedOps(cfg, device, variant=self.variant)
         if self.path == "shift_xla":
             return StridedOps(cfg, self.dtype, device)
         if self.path == "block":

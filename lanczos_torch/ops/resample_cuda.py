@@ -44,12 +44,12 @@ fused plan, take kernel 2 for integer scales and v1
 (``resample_phase_cuda``) for the rest.
 
 On a CUDA tensor :func:`fused_call` launches the kernel; on a CPU tensor it
-runs :func:`fused_resample_reference`, which walks the same plan.  The
-interleaved API (:func:`resample_2d_cuda`) hands contiguous (B, H, W, C)
-frames on the card to the ring kernel's interleaved form
-(:func:`interleaved_call`, on a plan of :func:`interleaved_block` columns),
-which reads and writes them as they lie; other frames go through planar
-layout.
+runs :func:`fused_resample_reference`, which walks the same plan.  A card's
+:class:`FusedOps` keeps a :class:`Layout` a channel count (the planar one,
+and the ring kernel's interleaved form, which reads and writes (B, H, W, C)
+frames as they lie), routed by :func:`ring_shape` when it is uploaded.
+Every launch goes through ``_launch``; :func:`upscale_frames` is the one
+boundary between frames and the kernels' planes.
 """
 
 from __future__ import annotations
@@ -74,7 +74,7 @@ from lanczos_torch.ops.resample_shift_cuda import (
 from lanczos_torch.utils.tracing import FUSED_RING, FUSED_TILE, span
 
 # Launches of the fused kernel by this process, per instantiation; only
-# fused_call adds to it, where it launches.
+# _launch adds to it.
 launches = {
     f"fused_resample_{p}{d}{q}": 0
     for p in ("fp32", "bf16") for d in ("", "_dering") for q in ("", "_quant")
@@ -82,7 +82,7 @@ launches = {
 # Of those, the launches that ran the pipelined kernel (``ring_shape``).
 pipelined = dict.fromkeys(launches, 0)
 # Of those, the launches that read and wrote interleaved (B, H, W, C) frames as
-# they lie (``interleaved_call``).
+# they lie (``upscale_frames``).
 interleaved = dict.fromkeys(launches, 0)
 
 
@@ -338,7 +338,6 @@ def interleaved_block(channels: int) -> int:
     return min(widths, key=lambda cb: (store_ways(cb * channels), -cb), default=0)
 
 
-@functools.lru_cache(maxsize=8)
 def interleaved_plan(cfg: ResampleConfig, tile: int, channels: int,
                      block: int = 0) -> Optional[FusedPlan]:
     """The interleaved ring's plan: ``tile``-row tiles (the fused plan's),
@@ -659,20 +658,20 @@ def ring_layout(a: dict, dering: bool) -> dict:
 
 
 def ring_shape(a: dict, w: int, oh: int, ow: int, pointers, dering: bool) -> tuple:
-    """``(stages, blocks an SM)`` of the pipelined kernel for one launch,
+    """``(stages, blocks an SM)`` of the pipelined kernel for a table set,
     or ``(0, 0)`` where it cannot run and the one-tile-a-block kernel
-    takes the launch: TMA addresses rows of whole 16-byte chunks from
-    16-byte aligned tensors (``W`` and ``OW``, times the layout's
-    ``channels``, and the block width multiples of 16, every pointer
-    aligned), boxes of at most 256 a side (the band's ``bw`` bytes by
-    ``kv`` rows, the output's ``cb · channels`` by ``tile / 4``), and the
-    output leaves in quarters of rows 4k + q (``tile`` a multiple of 4,
-    at least 4 output rows; the tables' rows, ``tile_p`` bytes of window
-    bases, are bulk copies of 16-byte multiples).  The most blocks an SM
-    (three, two or one) of which each holds a ring of two stages; as many
-    stages as fit, up to :data:`RING_STAGES`.  A pure function of the
-    launch's geometry, ``a`` being :func:`kernel_layout`'s integer
-    fields."""
+    takes the launch (asked once a table set, by :func:`upload_layout`):
+    TMA addresses rows of whole 16-byte chunks from 16-byte aligned
+    tensors (``W`` and ``OW``, times the layout's ``channels``, and the
+    block width multiples of 16, every pointer aligned), boxes of at most
+    256 a side (the band's ``bw`` bytes by ``kv`` rows, the output's ``cb ·
+    channels`` by ``tile / 4``), and the output leaves in quarters of rows
+    4k + q (``tile`` a multiple of 4, at least 4 output rows; the tables'
+    rows, ``tile_p`` bytes of window bases, are bulk copies of 16-byte
+    multiples).  The most blocks an SM (three, two or one) of which each
+    holds a ring of two stages; as many stages as fit, up to
+    :data:`RING_STAGES`.  A pure function of the geometry, ``a`` being
+    :func:`kernel_layout`'s integer fields."""
     tile, tile_p, c = a["tile"], a["tile_p"], a["channels"]
     row = a["cb"] * c
     if (w * c % 16 or ow * c % 16 or a["cb"] % 16 or row > 256 or tile % 4 or tile_p % 16
@@ -685,6 +684,32 @@ def ring_shape(a: dict, w: int, oh: int, ow: int, pointers, dering: bool) -> tup
         if stages >= 2:
             return stages, blocks
     return 0, 0
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Layout:
+    """One launchable table set of the fused kernel: ``tensors``,
+    :func:`kernel_layout`'s arrays on the device; ``args``, its integer
+    arguments; ``route``, the ``(stages, blocks)`` :func:`ring_shape` gave
+    the tables when they were uploaded (``(0, 0)``: the one-tile kernel)."""
+
+    tensors: dict
+    args: dict
+    route: tuple
+
+
+def upload_layout(plan: FusedPlan, cfg: ResampleConfig, device,
+                  channels: int = 1) -> Optional[Layout]:
+    """``plan``'s :func:`kernel_layout` for frames of ``channels`` channels,
+    uploaded to ``device``, with its route; an interleaved layout
+    (``channels`` > 1) that the ring does not take is None."""
+    lay = kernel_layout(plan, cfg.precision, channels)
+    tensors = {k: torch.from_numpy(v).to(device) for k, v in lay.items()
+               if isinstance(v, np.ndarray)}
+    args = {k: v for k, v in lay.items() if isinstance(v, int)}
+    (_, w), (oh, ow) = cfg.in_shape, cfg.out_shape
+    route = ring_shape(args, w, oh, ow, [t.data_ptr() for t in tensors.values()], cfg.dering)
+    return Layout(tensors, args, route) if route[0] or channels == 1 else None
 
 
 VERTICAL_FIELDS = ("kv", "tile_p", "win_v", "num_tiles")  # what a shard's tables must share
@@ -727,24 +752,27 @@ class VerticalTables:
     whose horizontal fields equal the shared plan's; ``fields`` its
     :data:`VERTICAL_FIELDS`, which must equal the shared plan's; ``tensors``
     the kernel's ``wv``, ``base_v``, ``starts_v`` (and ``cv``) on a CUDA
-    device, None on the CPU, where the plain version reads ``plan``."""
+    device, None on the CPU, where the plain version reads ``plan``;
+    ``aligned``, whether every one of them is 16-byte aligned (else a launch
+    on them takes the one-tile kernel)."""
 
     plan: FusedPlan
     precision: Precision
     fields: dict
     tensors: Optional[dict]
+    aligned: bool
 
 
 def vertical_tables(plan: FusedPlan, precision: Precision, device="cuda") -> VerticalTables:
-    """A shard's :class:`VerticalTables` on ``device``."""
+    """A shard's :class:`VerticalTables` on ``device``, alignment checked."""
     device = torch.device(device)
     lay = vertical_layout(plan, precision)
     tensors = None
     if device.type == "cuda":
         tensors = {k: torch.from_numpy(v).to(device)
                    for k, v in lay.items() if isinstance(v, np.ndarray)}
-    return VerticalTables(plan, Precision(precision),
-                          {k: lay[k] for k in VERTICAL_FIELDS}, tensors)
+    return VerticalTables(plan, Precision(precision), {k: lay[k] for k in VERTICAL_FIELDS},
+                          tensors, all(t.data_ptr() % 16 == 0 for t in (tensors or {}).values()))
 
 
 def _check_plan(plan: FusedPlan, cfg: ResampleConfig) -> None:
@@ -846,16 +874,16 @@ class FusedOps:
     raises.  A width-first config with dering or the quantized
     intermediate holds the ops of its :func:`transposed_cfg` (``tr_ops``)
     and runs on the transposed image.  ``plan`` is a hand-built fused plan
-    (checked against the config); ``design`` goes to v1's ``PhaseOps``
+    (checked against the config); without one the ops take the config's
+    own, :func:`fused_plan`.  ``design`` goes to v1's ``PhaseOps``
     (``"generic"`` forces its first design: tests and timing).
 
     ``variant`` (``"mxu"``, ``"v2"`` or ``"v1"``) and ``kernel`` then name
     what runs; of ``plan`` (the fused plan), ``shift`` (kernel 2's ops) and
-    ``phase`` (v1's ops) one is set and the others are None.  On CUDA the
-    fused weights are uploaded once in the kernel's layout
-    (:func:`kernel_layout`), and those of the ring's interleaved form once
-    for each channel count a call brings (:meth:`interleaved_layout`); on
-    the CPU the plain versions run."""
+    ``phase`` (v1's ops) one is set and the others are None.  ``layouts``
+    holds the fused kernel's launch records by channel count
+    (:meth:`layout`): on CUDA the planar one is uploaded here; on the CPU
+    the plain versions run and there are none."""
 
     def __init__(
         self, cfg: ResampleConfig, device="cuda", plan: Optional[FusedPlan] = None,
@@ -875,8 +903,10 @@ class FusedOps:
             self.device = torch.device("cuda", torch.cuda.current_device())
         elif self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {self.device}")
-        self.tr_ops = self.shift = self.phase = self.tensors = self.args = None
-        self._interleaved: dict = {}
+        self.tr_ops = self.shift = self.phase = None
+        self.layouts: dict = {}
+        # the config's own plan, whose interleaved form the config's operators give
+        self._own_plan = plan is None
         tcfg = _plan_cfg(cfg)
         if tcfg is not cfg:
             if variant == "auto" and plan is None and fused_plan(tcfg) is None:
@@ -913,40 +943,20 @@ class FusedOps:
         if self.device.type == "cuda":
             if plan.num_tiles > 65535:
                 raise ValueError(f"{plan.num_tiles} row tiles exceed gridDim.y")
-            lay = kernel_layout(plan, cfg.precision)
-            self.tensors = {
-                k: torch.from_numpy(v).to(self.device)
-                for k, v in lay.items() if isinstance(v, np.ndarray)
-            }
-            self.args = {k: v for k, v in lay.items() if isinstance(v, int)}
+            self.layouts[1] = upload_layout(plan, cfg, self.device)
 
-    def interleaved_layout(self, channels: int) -> Optional[tuple]:
-        """``(tensors, args)`` of the ring's interleaved form for frames of
-        ``channels`` channels (:func:`interleaved_plan`'s tables on this
-        card, uploaded at the first call), or None where the route does not
-        apply: the CPU, another kernel, a width-first nonlinear config (the
-        transposed image), one channel (its frames are already planes), no
-        plan, or a plan other than the config's own (a chunk's or a shard's,
-        whose operators the config does not give)."""
-        if (self.device.type != "cuda" or self.variant != "mxu" or self.tr_ops is not None
-                or channels < 2):
-            return None
-        if channels not in self._interleaved:
-            plan = (interleaved_plan(self.cfg, self.plan.tile_out, channels)
-                    if self.plan is fused_plan(self.cfg) else None)
-            self._interleaved[channels] = plan and interleaved_tables(
-                plan, self.cfg.precision, channels, self.device)
-        return self._interleaved[channels]
-
-
-def interleaved_tables(plan: FusedPlan, precision: Precision, channels: int,
-                       device) -> tuple:
-    """``(tensors, args)``: an interleaved plan's kernel layout on
-    ``device`` and its integer arguments."""
-    lay = kernel_layout(plan, precision, channels)
-    return ({k: torch.from_numpy(v).to(device) for k, v in lay.items()
-             if isinstance(v, np.ndarray)},
-            {k: v for k, v in lay.items() if isinstance(v, int)})
+    def layout(self, channels: int = 1) -> Optional[Layout]:
+        """The launch record for ``channels`` channels: 1, the planar
+        layout; more, the ring's interleaved form (:func:`interleaved_plan`,
+        uploaded at the first call).  None where there is no planar layout
+        (the CPU, another kernel, the transposed image's ``tr_ops``), for a
+        hand-built plan (whose operators the config does not give), or
+        where the ring does not take the interleaved form."""
+        if channels not in self.layouts:
+            own = self._own_plan and self.layouts.get(1) is not None
+            plan = interleaved_plan(self.cfg, self.plan.tile_out, channels) if own else None
+            self.layouts[channels] = plan and upload_layout(plan, self.cfg, self.device, channels)
+        return self.layouts[channels]
 
 
 def make_fused_ops(cfg: ResampleConfig, plan: FusedPlan, device="cuda") -> FusedOps:
@@ -970,7 +980,7 @@ def _check_tables(ops: FusedOps, wv: VerticalTables) -> None:
         raise ValueError("wv= tables hold no device tensors: build them on the device")
     if wv.tensors is not None and wv.tensors["wv"].device != ops.device:
         raise ValueError(f"wv= tables on {wv.tensors['wv'].device}, weights on {ops.device}")
-    mine = ops.args if ops.args is not None else _vertical_fields(ops.plan, cfg.precision)
+    mine = _vertical_fields(ops.plan, cfg.precision)
     for k in VERTICAL_FIELDS:
         if wv.fields[k] != mine[k]:
             raise ValueError(f"wv= tables have {k}={wv.fields[k]}, the plan {k}={mine[k]}")
@@ -981,14 +991,14 @@ def fused_call(ops: FusedOps, x: torch.Tensor, wv: Optional[VerticalTables] = No
     """(NC, H, W) uint8 → (NC, OH, OW) uint8 on ``ops``'s device, through
     the fused kernel.
 
-    A CUDA tensor launches the kernel (or raises): the pipelined kernel
-    where :func:`ring_shape` finds it fits the launch, else the
-    one-tile-a-block kernel; a CPU tensor runs the plain version.  ``wv``,
-    one row shard's :class:`VerticalTables`, replaces the plan's vertical
-    tables (``wv``, ``base_v``, ``starts_v``, ``cv``) in the launch; the
-    horizontal tables and every integer argument stay ``ops``'s, and a
-    table set whose ``kv``, ``tile_p``, ``win_v`` or ``num_tiles`` differ
-    raises."""
+    A CUDA tensor launches the kernel on the planar layout (or raises): the
+    pipelined kernel where its route and the tensors' alignment allow, else
+    the one-tile-a-block kernel; a CPU tensor runs the plain version.
+    ``wv``, one row shard's :class:`VerticalTables`, replaces the plan's
+    vertical tables (``wv``, ``base_v``, ``starts_v``, ``cv``) in the
+    launch; the horizontal tables and every integer argument stay
+    ``ops``'s, and a table set whose ``kv``, ``tile_p``, ``win_v`` or
+    ``num_tiles`` differ raises."""
     if ops.variant != "mxu" or ops.tr_ops is not None:
         raise ValueError(
             f"this config runs {ops.kernel}"
@@ -1009,65 +1019,34 @@ def fused_call(ops: FusedOps, x: torch.Tensor, wv: Optional[VerticalTables] = No
         return fused_resample_reference(
             x, ops.plan, cfg.precision, (oh, ow), cfg.dering, cfg.intermediate_quantize, wv
         )
-    return _launch(ops, x, wv)
-
-
-def _launch(ops: FusedOps, x: torch.Tensor, wv: Optional[VerticalTables]) -> torch.Tensor:
-    """:func:`fused_call`'s launch on the card, to the kernel
-    :func:`ring_shape` routes it to."""
-    (h, w), (oh, ow) = ops.cfg.in_shape, ops.cfg.out_shape
     if not x.is_contiguous():
         raise ValueError("the fused kernel needs a contiguous input")
-    nc = x.shape[0]
-    if nc > 65535:
-        raise ValueError(f"{nc} planes exceed gridDim.z")
-    out = torch.empty((nc, oh, ow), dtype=torch.uint8, device=x.device)
-    t = ops.tensors if wv is None else dict(ops.tensors, **wv.tensors)
-    pointers = [x.data_ptr(), out.data_ptr(), *(v.data_ptr() for v in t.values())]
-    _run(ops, x, out, t, ops.args, ring_shape(ops.args, w, oh, ow, pointers, ops.cfg.dering))
+    out = torch.empty((x.shape[0], oh, ow), dtype=torch.uint8, device=x.device)
+    _launch(ops, x, out, ops.layout(), wv)
     return out
 
 
-def interleaved_call(ops: FusedOps, x: torch.Tensor) -> Optional[torch.Tensor]:
-    """(B, H, W, C) uint8 on the card → (B, OH, OW, C) uint8 through the
-    ring kernel's interleaved form, which reads and writes the frames as
-    they lie; None where the route does not apply
-    (:meth:`FusedOps.interleaved_layout`, a tensor that is not ``ops``'s
-    contiguous uint8 frames) or :func:`ring_shape` finds it does not fit
-    the launch, and the caller goes through planar layout."""
-    if x.dim() != 4 or x.dtype != torch.uint8 or x.device != ops.device:
-        return None
-    (h, w), (oh, ow) = ops.cfg.in_shape, ops.cfg.out_shape
-    layout = ops.interleaved_layout(x.shape[3])
-    if layout is None or tuple(x.shape[1:3]) != (h, w) or not x.is_contiguous():
-        return None
-    t, a = layout
-    out = torch.empty((x.shape[0], oh, ow, x.shape[3]), dtype=torch.uint8, device=x.device)
-    pointers = [x.data_ptr(), out.data_ptr(), *(v.data_ptr() for v in t.values())]
-    route = ring_shape(a, w, oh, ow, pointers, ops.cfg.dering)
-    if not route[0]:
-        return None
-    _run(ops, x, out, t, a, route)
-    interleaved[ops.kernel] += 1
-    return out
-
-
-def _run(ops: FusedOps, x: torch.Tensor, out: torch.Tensor, t: dict, a: dict,
-         route: tuple) -> None:
-    """One launch of ``ops``'s kernel on tables ``t`` and integer
-    arguments ``a``, inside the span of the kernel ``route`` (``(stages,
-    blocks)``, :func:`ring_shape`) names (``FUSED_RING`` or
-    ``FUSED_TILE``), counted."""
+def _launch(ops: FusedOps, x: torch.Tensor, out: torch.Tensor, layout: Layout,
+            wv: Optional[VerticalTables] = None) -> None:
+    """The one launch of the fused kernel: ``x`` into ``out`` on
+    ``layout``'s tables (the vertical ones ``wv``'s where given), by its
+    route where ``x``, ``out`` (and ``wv``) are 16-byte aligned, else by
+    the one-tile kernel; in the span of the kernel it takes, counted."""
     cfg = ops.cfg
     (h, w), (oh, ow) = cfg.in_shape, cfg.out_shape
-    stages, blocks = route
-    centers = [t["cv"].data_ptr(), t["ch"].data_ptr()] if cfg.dering else [None, None]
+    if x.shape[0] > 65535:
+        raise ValueError(f"{x.shape[0]} planes exceed gridDim.z")
+    t, a = layout.tensors, layout.args
+    v = t if wv is None else wv.tensors
+    aligned = x.data_ptr() % 16 == out.data_ptr() % 16 == 0 and (wv is None or wv.aligned)
+    stages, blocks = layout.route if aligned else (0, 0)
+    centers = [v["cv"].data_ptr(), t["ch"].data_ptr()] if cfg.dering else [None, None]
     lib = _build.library()
     with span(FUSED_RING if stages else FUSED_TILE), torch.cuda.device(x.device):
         code = lib.lanczos_fused_resample(
-            x.data_ptr(), out.data_ptr(), t["wv"].data_ptr(), t["wh"].data_ptr(),
-            t["base_v"].data_ptr(), t["base_h"].data_ptr(),
-            t["starts_v"].data_ptr(), t["starts_h"].data_ptr(),
+            x.data_ptr(), out.data_ptr(), v["wv"].data_ptr(), t["wh"].data_ptr(),
+            v["base_v"].data_ptr(), t["base_h"].data_ptr(),
+            v["starts_v"].data_ptr(), t["starts_h"].data_ptr(),
             t["uniq_h"].data_ptr(), *centers, x.shape[0], h, w, oh, ow, a["tile"],
             a["tile_p"], a["kv"], a["cb"], a["cb_p"], a["kh"], a["win_v"], a["win_h"],
             a["bw"], a["mw"], a["stage_w"], a["n_cb"], a["num_tiles"],
@@ -1078,6 +1057,7 @@ def _run(ops: FusedOps, x: torch.Tensor, out: torch.Tensor, t: dict, a: dict,
     _build.check(code)
     launches[ops.kernel] += 1
     pipelined[ops.kernel] += stages > 0
+    interleaved[ops.kernel] += a["channels"] > 1
 
 
 def upscale_planar(img: torch.Tensor, ops: FusedOps) -> torch.Tensor:
@@ -1087,7 +1067,14 @@ def upscale_planar(img: torch.Tensor, ops: FusedOps) -> torch.Tensor:
     if ops.tr_ops is not None:
         return upscale_planar(img.transpose(-1, -2), ops.tr_ops).transpose(-1, -2)
     batched = img.dim() == 4
-    x = img if batched else img[None]
+    y = _planes(img if batched else img[None], ops)
+    return y if batched else y[0]
+
+
+def _planes(x: torch.Tensor, ops: FusedOps, wv: Optional[VerticalTables] = None
+            ) -> torch.Tensor:
+    """(B, C, H, W) → (B, C, OH, OW) through ``ops``'s own kernel, on
+    planes made contiguous."""
     b, c = x.shape[0], x.shape[1]
     x = x.reshape(b * c, *x.shape[2:]).contiguous()
     if ops.shift is not None:
@@ -1095,19 +1082,36 @@ def upscale_planar(img: torch.Tensor, ops: FusedOps) -> torch.Tensor:
     elif ops.phase is not None:
         y = phase_call(ops.phase, x)
     else:
-        y = fused_call(ops, x)
-    y = y.reshape(b, c, *ops.cfg.out_shape)
-    return y if batched else y[0]
+        y = fused_call(ops, x, wv)
+    return y.reshape(b, c, *ops.cfg.out_shape)
+
+
+def upscale_frames(frames: torch.Tensor, ops: FusedOps,
+                   wv: Optional[VerticalTables] = None) -> torch.Tensor:
+    """Frames path: (B, H, W, C) uint8 on ``ops``'s device → (B, OH, OW, C)
+    uint8.  The ring's interleaved form reads and writes contiguous,
+    16-byte aligned frames as they lie where ``ops`` has a layout for
+    their C > 1 channels and no ``wv`` (a row shard's
+    :class:`VerticalTables`) is given; other frames go through planar
+    layout (a copy into planes, :func:`upscale_planar`'s launch, the
+    permute back: a view)."""
+    layout = None
+    if (wv is None and frames.dim() == 4 and frames.shape[3] > 1 and frames.dtype == torch.uint8
+            and frames.device == ops.device and tuple(frames.shape[1:3]) == ops.cfg.in_shape
+            and frames.is_contiguous() and frames.data_ptr() % 16 == 0):
+        layout = ops.layout(frames.shape[3])
+    if layout is None:
+        planes = frames.permute(0, 3, 1, 2)
+        y = upscale_planar(planes, ops) if wv is None else _planes(planes, ops, wv)
+        return y.permute(0, 2, 3, 1)
+    out = torch.empty((frames.shape[0], *ops.cfg.out_shape, frames.shape[3]),
+                      dtype=torch.uint8, device=frames.device)
+    _launch(ops, frames, out, layout)
+    return out
 
 
 def resample_2d_cuda(img: torch.Tensor, ops: FusedOps) -> torch.Tensor:
-    """Interleaved API: (..., H, W, C) uint8 → (..., OH, OW, C) uint8: the
-    ring kernel on the frames as they lie wherever :func:`interleaved_call`
-    takes them (contiguous frames on the card), else through planar layout
-    at the boundary (the copy into planes and the permute back)."""
-    lead = img.shape[:-3]
-    x = img.reshape((-1,) + tuple(img.shape[-3:]))
-    y = interleaved_call(ops, x) if img.is_contiguous() else None
-    if y is None:
-        y = upscale_planar(x.permute(0, 3, 1, 2), ops).permute(0, 2, 3, 1)
-    return y.reshape(tuple(lead) + tuple(y.shape[1:]))
+    """Interleaved API: (..., H, W, C) uint8 → (..., OH, OW, C) uint8:
+    :func:`upscale_frames` on the frames of the leading axes."""
+    y = upscale_frames(img.reshape((-1,) + tuple(img.shape[-3:])), ops)
+    return y.reshape(tuple(img.shape[:-3]) + tuple(y.shape[1:]))

@@ -24,7 +24,7 @@ byte for byte, as the reference holds its paths to its single chip:
   fix rows recomputed on their owner shard;
 - the fused kernel for uint8 frames: one plan every shard shares
   (horizontal tables, launch shape) and each shard's own vertical tables
-  (``fused_call(..., wv=)``), cut from the frame's own operator so each
+  (``upscale_frames(..., wv=)``), cut from the frame's own operator so each
   output row has the single-device kernel's weights, in the same order;
   window offsets of zero weights add exact zeros.  Two channel groups
   give the overlap: the second group's exchange is under way while the
@@ -52,8 +52,8 @@ from lanczos_torch.ops.resample_cuda import (
     _operators,
     _window_lengths,
     build_fused_plan,
-    fused_call,
     make_fused_ops,
+    upscale_frames,
     vertical_tables,
 )
 from lanczos_torch.ops.resample_gather import (
@@ -333,7 +333,6 @@ class ShardedUpscaler:
 
     def _run_fused(self, blocks: dict) -> dict:
         """uint8 (b, il, W, C) blocks → (b, ol, OW, C), through the kernel."""
-        ol, ow = self.out_h_local, self.cfg.out_shape[1]
 
         def one(group: dict, strips: dict, wait) -> dict:
             wait()
@@ -341,11 +340,8 @@ class ShardedUpscaler:
             for p, x in group.items():
                 top, bot = strips[p]
                 ext = torch.cat([top, x, bot], dim=1)
-                b, he, w, c = ext.shape
-                planar = ext.permute(0, 3, 1, 2).reshape(b * c, he, w).contiguous()
-                t = self._tables(planar.device)
-                y = fused_call(t.fused, planar, wv=t.wv[self._r(p)])
-                out[p] = y.reshape(b, c, ol, ow).permute(0, 2, 3, 1)
+                t = self._tables(ext.device)
+                out[p] = upscale_frames(ext, t.fused, wv=t.wv[self._r(p)])
             return out
 
         def permutes(group: dict) -> tuple:

@@ -350,16 +350,16 @@ def probe_interleaved(lib, smi: str) -> None:
         print(f"interleaved {name} C={c}: planar ring {time_ms(getattr(lib, fn), a) / 4:.4f} ms "
               f"a frame (block {ops.plan.cb}), {ring_of(a)} [{smi}]", flush=True)
         for cb in INTERLEAVED_BLOCKS[c]:
-            ops_i = rc.FusedOps(cfg, "cuda")
-            # the layout of this block width in place of the production one
             plan = rc.interleaved_plan(cfg, ops.plan.tile_out, c, cb)
-            ops_i._interleaved[c] = plan and rc.interleaved_tables(plan, cfg.precision, c, "cuda")
+            layout = plan and rc.upload_layout(plan, cfg, ops.device, c)
             tag = f"interleaved {name} C={c} block {cb}" + (
                 " (production)" if cb == rc.interleaved_block(c) else "")
-            if ops_i._interleaved[c] is None or rc.interleaved_call(ops_i, frames) is None:
+            if layout is None:
                 print(f"{tag}: not on the ring", flush=True)
                 continue
-            a, got = launch_args(fn, lambda o=ops_i: rc.interleaved_call(o, frames))
+            ops_i = rc.FusedOps(cfg, "cuda")
+            ops_i.layouts[c] = layout  # this block width in place of the production one
+            a, got = launch_args(fn, lambda o=ops_i: rc.upscale_frames(frames, o))
             print(f"{tag}: {time_ms(getattr(lib, fn), a) / 4:.4f} ms a frame, {ring_of(a)}, "
                   f"bytes {'equal' if torch.equal(got, want) else 'DIFFER'}", flush=True)
 

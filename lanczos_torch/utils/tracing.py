@@ -28,8 +28,11 @@ The spans, by layer:
 - the sharding: :data:`SHARDED_CALL` (``ShardedUpscaler.__call__``:
   scatter, per-card work, gather to the first card);
 - the routing: :data:`FUSED_RING` and :data:`FUSED_TILE`, one around each
-  launch of the fused kernel on a card (``ops/resample_cuda.fused_call``),
-  named by the kernel ``ring_shape`` sent it to: the pipelined ring or the
+  launch of the fused kernel on a card, planar or interleaved (the one
+  launch function, ``ops/resample_cuda._launch``, which ``fused_call`` and
+  ``upscale_frames`` both call), named by the kernel it takes: the pipelined
+  ring where the layout's route (``ring_shape``, asked once when its tables
+  were uploaded) has one and the input and output are aligned, else the
   one-tile kernel.  A CPU call runs the plain version and records neither.
 
 Spans of one item share no identifier: a lane pops in submit order, so the

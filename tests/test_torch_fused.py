@@ -513,9 +513,12 @@ def test_build_needs_nvcc_and_is_keyed_by_the_sources(monkeypatch, tmp_path):
 # ---------------------------------------------------------------------------
 
 
+def _plan(cfg, tiles=None):
+    return rc.fused_plan(cfg) if tiles is None else rc.plan_at(cfg, *tiles)
+
+
 def _int_fields(cfg, tiles=None):
-    plan = rc.fused_plan(cfg) if tiles is None else rc.plan_at(cfg, *tiles)
-    lay = rc.kernel_layout(plan, cfg.precision)
+    lay = rc.kernel_layout(_plan(cfg, tiles), cfg.precision)
     return {k: v for k, v in lay.items() if isinstance(v, int)}
 
 
@@ -542,6 +545,8 @@ def test_ring_shape_rule(shape, scale, kw, tiles, pointers, want):
     f = _int_fields(cfg, tiles)
     (_, w), (oh, ow) = cfg.in_shape, cfg.out_shape
     assert rc.ring_shape(f, w, oh, ow, pointers, cfg.dering) == want
+    if max(pointers) % 16 == 0:  # host tables are aligned too: the layout's own route
+        assert rc.upload_layout(_plan(cfg, tiles), cfg, "cpu").route == want
 
 
 def test_ring_layout_and_what_does_not_fit():

@@ -1,13 +1,14 @@
 """The ring kernel's interleaved form: (B, H, W, C) uint8 frames read and
-written as they lie, so ``resample_2d_cuda`` launches no layout copy.
+written as they lie, so ``upscale_frames`` (and ``resample_2d_cuda`` around
+it) launches no layout copy.
 
 On the CPU (no JAX needed):
 
 - the route as a pure function of the launch's geometry
   (``interleaved_block``, ``interleaved_plan``, ``ring_shape`` on the
-  interleaved layout): the benchmark's 3/2 and 2/1 frames take it; rows
-  that are not whole 16-byte chunks, unaligned tensors and bands too wide
-  for one TMA box do not;
+  interleaved layout, and ``upload_layout``, which asks it once): the
+  benchmark's 3/2 and 2/1 frames take it; rows that are not whole 16-byte
+  chunks, unaligned tensors and bands too wide for one TMA box do not;
 - the interleaved plan (blocks of their own width) gives the fused plan's
   bytes, linear and nonlinear, fp32 and bf16;
 - a numpy re-enactment of the kernel's loops on its interleaved host layout
@@ -15,9 +16,12 @@ On the CPU (no JAX needed):
   the horizontal pass on column C·j + ch, the staged quarters of cb·C bytes
   and their TMA stores) gives the plain version's bytes;
 - ``resample_2d_cuda`` on CPU tensors gives the planar route's bytes;
-- with the library stubbed, ``interleaved_call`` launches the interleaved
+- with the library stubbed, ``upscale_frames`` launches the interleaved
   form with its channel count, counts it in ``resample_cuda.interleaved``,
-  and declines (counting nothing) where the route does not apply.
+  and declines (counting nothing) where the route does not apply; an
+  ``Upscaler``'s card ops keep the route after ``fused_plan``'s cache has
+  let their plan go; a streaming chunk and a sharded block (hand-built
+  plans) reach the kernel through ``upscale_frames`` as planes.
 
 On the card (marked ``cuda``; skipped without one,
 ``python -m pytest --noconftest tests/test_torch_interleaved.py``): the
@@ -122,6 +126,9 @@ def test_interleaved_route_rule(shape, scale, kw, channels, pointers, want):
     assert a["channels"] == channels and plan.tile_out == rc.fused_plan(cfg).tile_out
     stages, blocks = rc.ring_shape(a, w, oh, ow, pointers, cfg.dering)
     assert (stages > 0) == want
+    if max(pointers) % 16 == 0:  # host tables are aligned too: the layout's own route
+        layout = rc.upload_layout(plan, cfg, "cpu", channels)
+        assert (layout is not None) == want and (not want or layout.route == (stages, blocks))
     if want:
         assert 2 <= stages <= rc.RING_STAGES and blocks >= 1
         lay_r = rc.ring_layout(a, cfg.dering)
@@ -284,7 +291,7 @@ def test_resample_2d_cuda_on_the_cpu_is_the_planar_route(shape, scale, channels)
     version's bytes, through the batch's leading axes."""
     cfg = _cfg(shape, scale)
     ops = rc.FusedOps(cfg, "cpu")
-    assert ops.interleaved_layout(channels) is None
+    assert ops.layout(channels) is None
     x = _frames(4, shape, channels, seed=channels)
     before = dict(rc.interleaved)
     got = rc.resample_2d_cuda(x.reshape(2, 2, *x.shape[1:]), ops)
@@ -322,24 +329,16 @@ def stubbed(monkeypatch):
     return lib
 
 
-def _ops_as_on_a_card(cfg):
-    """``FusedOps`` on the CPU holding what a card's would: the planar
-    layout as tensors and, for any channel count, the interleaved one."""
-    ops = rc.FusedOps(cfg, "cpu")
-    lay = rc.kernel_layout(ops.plan, cfg.precision)
-    ops.tensors = {k: torch.from_numpy(v).clone() for k, v in lay.items()
-                   if isinstance(v, np.ndarray)}
-    ops.args = _ints(lay)
-
-    def interleaved_layout(c):
-        if c < 2:
-            return None
-        _, ilay = _layout(cfg, c)
-        return ({k: torch.from_numpy(v).clone() for k, v in ilay.items()
-                 if isinstance(v, np.ndarray)}, _ints(ilay))
-
-    ops.interleaved_layout = interleaved_layout
+def _as_on_a_card(ops):
+    """``ops`` (built on the CPU) holding what a card's would: the planar
+    layout, uploaded to the CPU by ``upload_layout`` as a card's are; the interleaved
+    ones then come from :meth:`FusedOps.layout` as on a card."""
+    ops.layouts[1] = rc.upload_layout(ops.plan, ops.cfg, "cpu")
     return ops
+
+
+def _ops_as_on_a_card(cfg):
+    return _as_on_a_card(rc.FusedOps(cfg, "cpu"))
 
 
 @pytest.mark.parametrize("shape,scale,kw,channels", [
@@ -374,33 +373,116 @@ def test_interleaved_call_declines_and_counts_nothing(stubbed, case):
         x = buf[1:].view(x.shape)
     if case == "strided":
         x = x.transpose(1, 2).contiguous().transpose(1, 2)
-    assert rc.interleaved_call(ops, x) is None
+    assert (ops.layout(c) is None) == (case == "ragged rows")  # else the frames decline
     assert torch.equal(rc.resample_2d_cuda(x, ops), _planar_want(x, cfg))
     assert stubbed.launched == [] and rc.interleaved[ops.kernel] == 0
 
 
 def test_interleaved_layout_declines_what_the_route_does_not_take(monkeypatch):
-    """The CPU, one channel, a hand-built plan and a width-first nonlinear
-    config (the transposed image) have no interleaved layout; the config's
-    own plan handed in (as ``Upscaler`` hands its CPU plan to a card's ops)
-    has one."""
-    monkeypatch.setattr(rc, "interleaved_tables",
-                        lambda plan, precision, c, device: ("tables", plan.tile_out, plan.cb, c))
+    """The CPU, a plan handed in (hand-built, or even the config's own) and
+    a width-first nonlinear config (the transposed image) have no
+    interleaved layout, and one channel has the planar one; a plan-less
+    ``FusedOps`` on a card has one."""
+    monkeypatch.setattr(rc, "upload_layout", lambda plan, cfg, device, channels=1: (
+        "tables", plan.tile_out, plan.cb, channels))
 
-    def as_on_a_card(ops):
-        ops.device = torch.device("cuda", 0)  # for the rule alone: nothing is uploaded
+    def as_on_a_card(ops):  # the planar layout where a card's ops upload it
+        on = ops.tr_ops or ops
+        on.layouts[1] = rc.upload_layout(on.plan, on.cfg, on.device)
         return ops
 
     cfg = _cfg((16, 32), (2, 1))
-    assert rc.FusedOps(cfg, "cpu").interleaved_layout(3) is None
-    own = as_on_a_card(rc.FusedOps(cfg, "cpu", plan=rc.fused_plan(cfg)))
-    assert own.interleaved_layout(1) is None
-    assert own.interleaved_layout(3) == ("tables", own.plan.tile_out, 80, 3)
+    assert rc.FusedOps(cfg, "cpu").layout(3) is None
+    own = as_on_a_card(rc.FusedOps(cfg, "cpu"))
+    assert own.layout(1) == ("tables", own.plan.tile_out, own.plan.cb, 1)
+    assert own.layout(3) == ("tables", own.plan.tile_out, 80, 3)
+    handed = as_on_a_card(rc.FusedOps(cfg, "cpu", plan=rc.fused_plan(cfg)))
+    assert handed.layout(3) is None
     hand = as_on_a_card(rc.FusedOps(cfg, "cpu", plan=rc.plan_at(cfg, 16, 32)))
-    assert hand.interleaved_layout(3) is None
+    assert hand.layout(3) is None
     wf = as_on_a_card(rc.FusedOps(_cfg((16, 32), (2, 1), dering=True, order="width_first"),
                                   "cpu"))
-    assert wf.tr_ops is not None and wf.interleaved_layout(3) is None
+    assert wf.tr_ops is not None and wf.layout(3) is None
+
+
+def test_an_upscalers_card_ops_keep_the_route_once_the_plan_cache_lets_go(stubbed):
+    """A card's ops, built as ``Upscaler`` builds them, own their plan as a
+    fact: with ``fused_plan``'s cache cleared and nine other configs planned
+    since (their plan is no longer the cache's), the first RGB frames still
+    take the interleaved ring, in one launch."""
+    cfg = _cfg((16, 32), (2, 1))
+    ops = _as_on_a_card(lanczos_torch.Upscaler(cfg, device="cpu")._make(torch.device("cpu")))
+    rc.fused_plan.cache_clear()
+    for w in range(48, 48 + 9 * 16, 16):
+        rc.fused_plan(_cfg((16, w), (2, 1)))
+    assert rc.fused_plan(cfg) is not ops.plan
+    assert ops.layout(3) is not None and ops.layout(3).args["cb"] == 80
+    y = rc.upscale_frames(_frames(2, (16, 32), 3), ops)
+    assert y.shape == (2, 32, 64, 3)
+    assert [launch[0] for launch in stubbed.launched] == [3]
+    assert rc.interleaved[ops.kernel] == rc.launches[ops.kernel] == 1
+
+
+def _card_tables(wv):
+    """A shard's :class:`VerticalTables` holding what a card's would: its
+    kernel tables, on the CPU."""
+    lay = rc.vertical_layout(wv.plan, wv.precision)
+    return rc.VerticalTables(wv.plan, wv.precision, wv.fields, {
+        k: torch.from_numpy(v) for k, v in lay.items() if isinstance(v, np.ndarray)}, True)
+
+
+@pytest.mark.parametrize("path", ["streaming", "sharded"])
+def test_hand_built_plans_reach_the_kernel_through_upscale_frames(path, stubbed, monkeypatch):
+    """A streaming fused chunk and a sharded ``backend="mxu"`` block reach
+    the kernel through ``upscale_frames``, which sends their RGB frames
+    through planar layout even on a card (their plans are hand-built): each
+    launch takes one channel on the planar layout's route, the one
+    ``ring_shape`` gives the plan's geometry, as before the frames
+    function; the plain version's bytes come back.  No module of
+    ``models/`` or ``parallel/`` calls ``fused_call`` itself."""
+    from pathlib import Path
+
+    from lanczos_torch.models import streaming
+    from lanczos_torch.parallel import sharded
+    from lanczos_torch.parallel.mesh import Mesh
+
+    real_call, real_frames, seen = rc.fused_call, rc.upscale_frames, []
+
+    def on_a_card(ops, x, wv=None):  # the launch a card makes, then the plain version
+        out = torch.empty((x.shape[0], *ops.cfg.out_shape), dtype=torch.uint8)
+        rc._launch(ops, x, out, ops.layout(), wv and _card_tables(wv))
+        return real_call(ops, x, wv)
+
+    def spy(frames, ops, wv=None):
+        seen.append(ops)
+        return real_frames(frames, ops, wv)
+
+    cfg = _cfg((64, 48), out_shape=(128, 96))
+    x = _frames(2, (64, 48), 3, seed=6)
+    if path == "streaming":
+        x = x[0]
+        model = lanczos_torch.StreamingUpscaler(cfg, 32, chunk_backend="mxu", device="cpu")
+        ops = _as_on_a_card(model._mxu)
+    else:
+        model = sharded.ShardedUpscaler(cfg, Mesh.local(["cpu"] * 2, (1, 2)), backend="mxu")
+        ops = _as_on_a_card(model._tables(torch.device("cpu")).fused)
+    want = lanczos_torch.Upscaler(cfg, device="cpu")(x)
+    monkeypatch.setattr(rc, "fused_call", on_a_card)
+    monkeypatch.setattr(streaming if path == "streaming" else sharded, "upscale_frames", spy)
+    got = torch.as_tensor(model(x.numpy() if path == "streaming" else x))
+    assert seen and all(o is ops for o in seen) and ops.layout(3) is None
+    (_, w), (oh, ow) = ops.cfg.in_shape, ops.cfg.out_shape
+    route = rc.ring_shape(ops.layout().args, w, oh, ow, (0,), cfg.dering)
+    assert route[0] > 0
+    assert stubbed.launched == [(1,) + route] * len(seen)
+    assert rc.interleaved[ops.kernel] == 0 and rc.launches[ops.kernel] == len(seen)
+    if path == "streaming":  # within 1 LSB: edge rows come from a padded window
+        assert (got.int() - want.int()).abs().max() <= 1
+    else:
+        assert torch.equal(got, want)
+    root = Path(rc.__file__).parents[1]
+    for module in [*(root / "models").glob("*.py"), *(root / "parallel").glob("*.py")]:
+        assert "fused_call(" not in module.read_text(), module.name
 
 
 # ---------------------------------------------------------------------------

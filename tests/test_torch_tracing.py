@@ -190,14 +190,11 @@ class _Library:
 
 def _ops_as_on_a_card(in_shape, out_shape):
     """A bf16 config's ``FusedOps`` on the CPU holding what a card's would
-    hold: the kernel's layout as tensors and its integer arguments."""
+    hold: its planar layout, uploaded to the CPU by ``upload_layout``."""
     cfg = lanczos_torch.ResampleConfig.from_profile("precise", in_shape, out_shape=out_shape,
                                                     a=3, precision="bf16")
     ops = rc.FusedOps(cfg, "cpu")
-    lay = rc.kernel_layout(ops.plan, cfg.precision)
-    ops.tensors = {k: torch.from_numpy(v).clone() for k, v in lay.items()
-                   if isinstance(v, np.ndarray)}
-    ops.args = {k: v for k, v in lay.items() if isinstance(v, int)}
+    ops.layouts[1] = rc.upload_layout(ops.plan, cfg, "cpu")
     return ops
 
 
@@ -216,10 +213,12 @@ def test_a_fused_launch_records_the_span_of_its_route_while_profiling(
                         lambda device=None: types.SimpleNamespace(cuda_stream=0))
     monkeypatch.setattr(rc, "launches", dict(rc.launches))
     monkeypatch.setattr(rc, "pipelined", dict(rc.pipelined))
+    monkeypatch.setattr(rc, "interleaved", dict(rc.interleaved))
     ops = _ops_as_on_a_card(in_shape, out_shape)
     x = torch.randint(0, 256, (3,) + in_shape, dtype=torch.uint8)
+    out = torch.empty((3,) + out_shape, dtype=torch.uint8)
 
-    _, spans = _traced(lambda: rc._launch(ops, x, None))
+    _, spans = _traced(lambda: rc._launch(ops, x, out, ops.layout()))
     want = {"ring": tracing.FUSED_RING, "tile": tracing.FUSED_TILE}[route]
     assert [s[0] for s in spans] == [want]
     assert (lib.routes[0][0] > 0) == (route == "ring")
@@ -229,7 +228,7 @@ def test_a_fused_launch_records_the_span_of_its_route_while_profiling(
 
     monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
     monkeypatch.setattr(torch.profiler, "record_function", refuse)
-    rc._launch(ops, x, None)
+    rc._launch(ops, x, out, ops.layout())
     assert len(lib.routes) == 2 and rc.launches[ops.kernel] == 2
     assert rc.pipelined[ops.kernel] == 2 * (route == "ring")
 
