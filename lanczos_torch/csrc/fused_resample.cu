@@ -140,9 +140,14 @@ struct OutMaps {
   CUtensorMap q[4];  // output rows 4k + q of every plane
 };
 
+// the intermediate's rounding of two values: to bf16 (one cvt.rn.bf16x2.f32, each value rounded
+// as __float2bfloat16_rn rounds it), or none
 template <bool BF16>
-__device__ __forceinline__ float round_mid(float v) {
-  return BF16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
+__device__ __forceinline__ void round_mid2(float& a, float& b) {
+  if (BF16) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    a = __low2float(h), b = __high2float(h);
+  }
 }
 
 // jnp.clip(v, min(a, b), max(a, b))
@@ -200,6 +205,15 @@ __device__ __forceinline__ unsigned quantize4(const float (&v)[4]) {
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// four floats to 16-byte aligned shared memory as one 16-byte store (st.shared.v4).  Written
+// as a float4 store, ptxas split most of the vertical pass's stores into four 4-byte stores
+// (its accumulators do not lie in aligned register quads), each four-way on the banks
+__device__ __forceinline__ void st_shared_v4(float* p, float a, float b, float c, float d) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(smem_u32(p)), "f"(a), "f"(b),
+               "f"(c), "f"(d)
+               : "memory");
 }
 
 // asynchronous copies global -> shared: 16 bytes through L1 (tables other blocks of the SM
@@ -325,17 +339,25 @@ struct InterleavedStage {
   int pitch, rw, C;
 };
 
-// step 2 of one tile, by threads tid, tid + kThreads, ...
+// step 2 of one tile, by threads tid, tid + kThreads, ...: thread tile = 8 intermediate columns
+// x one group of 4 tile rows, tile t = (t / (tile_p / 4), t % (tile_p / 4)) with bits 3 and 4 of
+// t swapped where tile_p / 4 is a multiple of 16 (tests/test_torch_vertical_tiling.py), so that
+// a half-warp takes 8 row groups of 2 column groups and not 16 of one: the rows of its band
+// loads step about 2 band rows a group, 112 or 176 bytes a row, and fall on twice the banks;
+// a quarter-warp's stores still write neighbouring 16-byte groups of one column
 template <bool BF16, bool DERING, bool QUANT>
 __device__ __forceinline__ void vertical_pass(int tid, const uint8_t* band, const float4* wv_s,
                                               const int* base_v_s, const int* cv_s,
                                               float* midT, int joff, const Geometry& g) {
   const int tile_p = g.tile_p, bw = g.bw, nrg_v = tile_p >> 2;
+  const bool swap = (nrg_v & 15) == 0;
+  const int n = (g.mw >> 3) * nrg_v;
   float acc[8][4];
-  // thread tile = 8 intermediate columns x one group of 4 tile rows
-  for (int t = tid; t < (g.mw >> 3) * nrg_v; t += kThreads) {
+  for (int t = tid; t < ((n + 31) & ~31); t += kThreads) {  // whole warps: the swap stays in one
+    const int u = swap ? (t & ~24) | (t >> 1 & 8) | (t << 1 & 16) : t;
+    if (u >= n) continue;
     int jg, rg;
-    split(t, nrg_v, g.nrg_v_lg, jg, rg);
+    split(u, nrg_v, g.nrg_v_lg, jg, rg);
     const uint8_t* bcol = band + joff + 8 * jg;
     const uint8_t* bp = bcol + base_v_s[rg] * bw;
     const float4* wp = wv_s + rg;
@@ -367,9 +389,10 @@ __device__ __forceinline__ void vertical_pass(int tid, const uint8_t* band, cons
       for (int n = 0; n < 4; ++n) {
         v[n] = acc[m][n];
         if (QUANT) v[n] = truncf(fminf(fmaxf(v[n], 0.f), 255.f));
-        v[n] = round_mid<BF16>(v[n]);
       }
-      *reinterpret_cast<float4*>(mcol + m * tile_p) = make_float4(v[0], v[1], v[2], v[3]);
+      round_mid2<BF16>(v[0], v[1]);
+      round_mid2<BF16>(v[2], v[3]);
+      st_shared_v4(mcol + m * tile_p, v[0], v[1], v[2], v[3]);
     }
   }
 }
@@ -767,12 +790,19 @@ cudaError_t launch_ring(const uint8_t* x, uint8_t* out, const void* wv, const vo
                    4ull * orow, (uint64_t)g.OH * orow, R.rw, g.tile / 4, R.swizzle))
       return cudaErrorInvalidValue;
   auto* kernel = fused_resample_kernel_ring<BF16, DERING, QUANT, ILV>;
-  cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, R.smem);
-  if (e == cudaSuccess)  // all of the SM's 228 KB to shared memory, so that `blocks` fit
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                             cudaSharedmemCarveoutMaxShared);
-  if (e != cudaSuccess) return e;
+  // the attributes once a device and size (each setting is a driver call the launch waits on)
+  static int allowed[64];  // per device: the shared memory the kernel may take, 0 before any
+  int dev = -1;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= 64) dev = -1;
+  if (dev < 0 || allowed[dev] != R.smem) {
+    cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, R.smem);
+    if (e == cudaSuccess)  // all of the SM's 228 KB to shared memory, so that `blocks` fit
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return e;
+    if (dev >= 0) allowed[dev] = R.smem;
+  }
   const int grid = min(R.total, blocks * multiprocessors());
   if (grid < 1) return cudaErrorInvalidValue;
   kernel<<<grid, kRingThreads, R.smem, stream>>>(

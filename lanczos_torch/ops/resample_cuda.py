@@ -54,6 +54,7 @@ boundary between frames and the kernels' planes.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
@@ -1042,7 +1043,10 @@ def _launch(ops: FusedOps, x: torch.Tensor, out: torch.Tensor, layout: Layout,
     stages, blocks = layout.route if aligned else (0, 0)
     centers = [v["cv"].data_ptr(), t["ch"].data_ptr()] if cfg.dering else [None, None]
     lib = _build.library()
-    with span(FUSED_RING if stages else FUSED_TILE), torch.cuda.device(x.device):
+    dev = x.device  # switched to only where it is not the current device: the switch costs µs
+    here = dev.type != "cuda" or dev.index == torch.cuda.current_device()
+    with (span(FUSED_RING if stages else FUSED_TILE),
+          contextlib.nullcontext() if here else torch.cuda.device(dev)):
         code = lib.lanczos_fused_resample(
             x.data_ptr(), out.data_ptr(), v["wv"].data_ptr(), t["wh"].data_ptr(),
             v["base_v"].data_ptr(), t["base_h"].data_ptr(),
@@ -1113,5 +1117,7 @@ def upscale_frames(frames: torch.Tensor, ops: FusedOps,
 def resample_2d_cuda(img: torch.Tensor, ops: FusedOps) -> torch.Tensor:
     """Interleaved API: (..., H, W, C) uint8 → (..., OH, OW, C) uint8:
     :func:`upscale_frames` on the frames of the leading axes."""
+    if img.dim() == 4:
+        return upscale_frames(img, ops)
     y = upscale_frames(img.reshape((-1,) + tuple(img.shape[-3:])), ops)
     return y.reshape(tuple(img.shape[:-3]) + tuple(y.shape[1:]))

@@ -13,8 +13,10 @@ its three full-width shapes (Lanczos-3, uniform noise from
 ``numpy.random.default_rng(0)``).  A probe's output is wrong by design;
 only its time and its registers are read.
 
-``fused`` (4K→8K linear fp32 and fp32 dering, 1440p→4K linear fp32: the
-2/1 and 3/2 plans of the benchmark's cells), probes of the pipelined kernel:
+``fused`` (4K→8K linear fp32, fp32 dering and bf16, 1440p→4K linear fp32:
+the 2/1 and 3/2 plans of the benchmark's cells, on 3 planes; and the ring's
+interleaved form on four RGB frames at both, ms a frame), probes of the
+pipelined kernel:
 
 - the timeline: ``empty`` returns at once (what launching the persistent
   grid costs), ``loads`` runs the producer alone (its consumers wait for each
@@ -22,6 +24,23 @@ only its time and its registers are read.
   only the TMA stores of the staged tiles;
 - the products: ``novert``, ``nohoriz`` and ``noboth`` run zero window
   steps (epilogues, barriers, loads and stores stay);
+- the vertical pass: ``rows`` is the pass as it was before its swapped
+  lanes, vector stores and paired bf16 rounding (16 row groups of one
+  column group a half-warp, each column's four sums stored as a C++
+  ``float4``, which ptxas splits into four 4-byte stores), with
+  ``rows_novert``, ``rows_nohoriz`` and ``rows_noboth``; ``f4store`` is
+  production with the ``float4`` stores back; ``rowmap`` production with
+  16 row groups of one column group a half-warp again; ``round1``
+  production rounding the bf16 intermediate one value at a time;
+  ``lanes44`` with 4 row groups of 4 column groups a half-warp (band loads
+  without conflicts at 2/1, stores two-way; plans of 16 row groups only);
+  and designs that lost: ``pairs`` (a warp a pair of row groups over up to
+  96 columns, three a lane, the pair's windows walked as their union so
+  that each band row is converted once for both; the intermediate's
+  columns 4 floats further apart so that its stores miss each other's
+  banks), ``pairs_noshare`` (each group walks its own window), and
+  ``cols5`` (a thread tile of 5 columns by one row group, so that 256
+  tiles fill the threads at 2/1);
 - the ring: ``ring1`` and ``ring2`` hold one and two stages (one stage:
   a tile's loads wait for the previous tile's passes), ``blocks1`` and
   ``blocks2`` run one and two blocks an SM (consumers at 232 and 96
@@ -97,6 +116,268 @@ _STORE = "        for (int q = 0; q < 4; ++q)\n          tma_store_3d("
 _NO_STORE = (_STORE, "        for (int q = 0; q < 4 * (g.H < 0); ++q)\n          tma_store_3d(")
 _RING = "const Ring R = ring_layout(g, dering != 0, stages);"
 
+# the intermediate's rounding one value at a time, as the vertical pass had it before it rounded
+# two at once (the designs below call it)
+_ROUND_MID = r"""template <bool BF16>
+__device__ __forceinline__ float round_mid(float v) {
+  return BF16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
+}
+
+"""
+# The vertical pass before its swapped lanes, vector stores and paired bf16 rounding, for the
+# "rows" probes
+_ROWS_V = _ROUND_MID + r"""// thread tile = 8 intermediate columns x one group of 4 tile rows, row groups fastest
+template <bool BF16, bool DERING, bool QUANT>
+__device__ __forceinline__ void vertical_pass_rows(int tid, const uint8_t* band,
+                                                   const float4* wv_s, const int* base_v_s,
+                                                   const int* cv_s, float* midT, int joff,
+                                                   const Geometry& g) {
+  const int tile_p = g.tile_p, bw = g.bw, nrg_v = tile_p >> 2;
+  float acc[8][4];
+  for (int t = tid; t < (g.mw >> 3) * nrg_v; t += kThreads) {
+    int jg, rg;
+    split(t, nrg_v, g.nrg_v_lg, jg, rg);
+    const uint8_t* bcol = band + joff + 8 * jg;
+    const uint8_t* bp = bcol + base_v_s[rg] * bw;
+    const float4* wp = wv_s + rg;
+#pragma unroll
+    for (int m = 0; m < 8; ++m)
+#pragma unroll
+      for (int n = 0; n < 4; ++n) acc[m][n] = 0.f;
+#pragma unroll 2
+    for (int s = 0; s < g.win_v; ++s) {
+      float a[8];
+      load8_u8(bp + s * bw, a);
+      fma_tile(a, wp[s * nrg_v], acc);
+    }
+    if (DERING) {
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        float lo[8], hi[8];
+        load8_u8(bcol + cv_s[4 * rg + n] * bw, lo);
+        load8_u8(bcol + cv_s[tile_p + 4 * rg + n] * bw, hi);
+#pragma unroll
+        for (int m = 0; m < 8; ++m) acc[m][n] = clamp_between(acc[m][n], lo[m], hi[m]);
+      }
+    }
+    float* mcol = midT + 8 * jg * tile_p + 4 * rg;
+#pragma unroll
+    for (int m = 0; m < 8; ++m) {
+      float v[4];
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        v[n] = acc[m][n];
+        if (QUANT) v[n] = truncf(fminf(fmaxf(v[n], 0.f), 255.f));
+        v[n] = round_mid<BF16>(v[n]);
+      }
+      *reinterpret_cast<float4*>(mcol + m * tile_p) = make_float4(v[0], v[1], v[2], v[3]);
+    }
+  }
+}
+
+"""
+# Designs of the vertical pass that lost (PERF.md §6), for the "pairs" and "cols5"
+# probes: a warp a pair of row groups over a chunk of columns, the pair's windows walked as
+# their union (the intermediate's columns tile_p + 4 floats apart, _MID_PAD)
+_PAIRS_V = _ROUND_MID + r"""// a vertical thread tile's three bytes of one band row as floats: the pair at pc (2-byte
+// aligned) and the byte at bc
+__device__ __forceinline__ void load3_u8(const uint8_t* row, int pc, int bc, float (&a)[3]) {
+  const unsigned pair = *reinterpret_cast<const uint16_t*>(row + pc), byte = row[bc];
+  a[0] = byte_to_float<0>(pair), a[1] = byte_to_float<1>(pair), a[2] = byte_to_float<0>(byte);
+}
+
+__device__ __forceinline__ void fma_cols(const float (&a)[3], const float4 w,
+                                         float (&acc)[3][4]) {
+#pragma unroll
+  for (int m = 0; m < 3; ++m) {
+    acc[m][0] = fmaf(a[m], w.x, acc[m][0]);
+    acc[m][1] = fmaf(a[m], w.y, acc[m][1]);
+    acc[m][2] = fmaf(a[m], w.z, acc[m][2]);
+    acc[m][3] = fmaf(a[m], w.w, acc[m][3]);
+  }
+}
+
+template <bool BF16, bool DERING, bool QUANT>
+__device__ __forceinline__ void vertical_pass_pairs(int tid, const uint8_t* band, const float4* wv_s,
+                                              const int* base_v_s, const int* cv_s,
+                                              float* midT, int joff, const Geometry& g) {
+  const int tile_p = g.tile_p, bw = g.bw, nrg_v = tile_p >> 2, pairs = nrg_v >> 1;
+  const int win = g.win_v, lane = tid & 31, mp = tile_p + 4;
+  const int v_chunks = max((g.mw + 95) / 96, min((8 + pairs - 1) / pairs, (g.mw + 31) / 32));
+  const int v_cw = ((g.mw + v_chunks - 1) / v_chunks + 1) / 2 * 2;
+  for (int t = tid >> 5; t < pairs * v_chunks; t += kWarps) {
+    const int chunk = t / pairs, rg = 2 * (t - chunk * pairs);
+    const int c0 = chunk * v_cw, cw = min(v_cw, g.mw - c0);
+    const bool in[3] = {2 * lane < cw, 2 * lane + 1 < cw, 64 + lane < cw};
+    const int pc = in[0] ? 2 * lane : 0, bc = in[2] ? 64 + lane : 0;  // in the chunk
+    const uint8_t* bcol = band + joff + c0;
+    const int b0 = base_v_s[rg], d = base_v_s[rg + 1] - b0;
+    const int e = d >= 0 && d < win ? d : win;  // the steps of rg before rg + 1's window
+    const float4* wp = wv_s + rg;
+    float acc[2][3][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int m = 0; m < 3; ++m)
+#pragma unroll
+        for (int n = 0; n < 4; ++n) acc[h][m][n] = 0.f;
+    const uint8_t* bp = bcol + b0 * bw;
+#pragma unroll 1
+    for (int s = 0; s < e; ++s) {  // rg alone
+      float a[3];
+      load3_u8(bp + s * bw, pc, bc, a);
+      fma_cols(a, wp[s * nrg_v], acc[0]);
+    }
+#pragma unroll 2
+    for (int s = e; s < win; ++s) {  // both
+      float a[3];
+      load3_u8(bp + s * bw, pc, bc, a);
+      fma_cols(a, wp[s * nrg_v], acc[0]);
+      fma_cols(a, wp[(s - d) * nrg_v + 1], acc[1]);
+    }
+    bp += d * bw;
+#pragma unroll 1
+    for (int s = win - e; s < win; ++s) {  // rg + 1 alone
+      float a[3];
+      load3_u8(bp + s * bw, pc, bc, a);
+      fma_cols(a, wp[s * nrg_v + 1], acc[1]);
+    }
+    if (DERING) {  // clamp to the band rows of tile row 4 (rg + h) + n's central taps
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          float lo[3], hi[3];
+          load3_u8(bcol + cv_s[4 * (rg + h) + n] * bw, pc, bc, lo);
+          load3_u8(bcol + cv_s[tile_p + 4 * (rg + h) + n] * bw, pc, bc, hi);
+#pragma unroll
+          for (int m = 0; m < 3; ++m) acc[h][m][n] = clamp_between(acc[h][m][n], lo[m], hi[m]);
+        }
+    }
+    const int col[3] = {2 * lane, 2 * lane + 1, 64 + lane};
+    float* mcol = midT + c0 * mp + 4 * rg;
+#pragma unroll
+    for (int m = 0; m < 3; ++m) {
+      if (!in[m]) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float v[4];
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          v[n] = acc[h][m][n];
+          if (QUANT) v[n] = truncf(fminf(fmaxf(v[n], 0.f), 255.f));
+          v[n] = round_mid<BF16>(v[n]);
+        }
+        *reinterpret_cast<float4*>(mcol + col[m] * mp + 4 * h) =
+            make_float4(v[0], v[1], v[2], v[3]);
+      }
+    }
+  }
+}
+
+"""
+# a thread tile of 5 columns (a word and a byte) by one row group: 256 tiles at 2/1
+_COLS5_V = _ROUND_MID + r"""
+__device__ __forceinline__ void load5_u8(const uint8_t* row, int wc, int bc, float (&a)[5]) {
+  const unsigned w4 = *reinterpret_cast<const unsigned*>(row + wc), b1 = row[bc];
+  a[0] = byte_to_float<0>(w4), a[1] = byte_to_float<1>(w4), a[2] = byte_to_float<2>(w4);
+  a[3] = byte_to_float<3>(w4), a[4] = byte_to_float<0>(b1);
+}
+
+template <bool BF16, bool DERING, bool QUANT>
+__device__ __forceinline__ void vertical_pass_cols5(int tid, const uint8_t* band,
+                                                    const float4* wv_s, const int* base_v_s,
+                                                    const int* cv_s, float* midT, int joff,
+                                                    const Geometry& g) {
+  const int tile_p = g.tile_p, bw = g.bw, nrg_v = tile_p >> 2;
+  const int tg = (g.mw + 4) / 5, wordc = 4 * tg;  // lanes a row group; the columns of their words
+  float acc[5][4];
+  for (int t = tid; t < nrg_v * tg; t += kThreads) {
+    const int j = t / nrg_v, rg = t - j * nrg_v;
+    const bool has_b = wordc + j < g.mw;
+    const int bc = has_b ? wordc + j : 0;
+    const uint8_t* bp = band + joff + base_v_s[rg] * bw;
+    const float4* wp = wv_s + rg;
+#pragma unroll
+    for (int m = 0; m < 5; ++m)
+#pragma unroll
+      for (int n = 0; n < 4; ++n) acc[m][n] = 0.f;
+#pragma unroll 2
+    for (int s = 0; s < g.win_v; ++s) {
+      float a[5];
+      load5_u8(bp + s * bw, 4 * j, bc, a);
+      const float4 w = wp[s * nrg_v];
+#pragma unroll
+      for (int m = 0; m < 5; ++m) {
+        acc[m][0] = fmaf(a[m], w.x, acc[m][0]);
+        acc[m][1] = fmaf(a[m], w.y, acc[m][1]);
+        acc[m][2] = fmaf(a[m], w.z, acc[m][2]);
+        acc[m][3] = fmaf(a[m], w.w, acc[m][3]);
+      }
+    }
+    if (DERING) {
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        float lo[5], hi[5];
+        load5_u8(band + joff + cv_s[4 * rg + n] * bw, 4 * j, bc, lo);
+        load5_u8(band + joff + cv_s[tile_p + 4 * rg + n] * bw, 4 * j, bc, hi);
+#pragma unroll
+        for (int m = 0; m < 5; ++m) acc[m][n] = clamp_between(acc[m][n], lo[m], hi[m]);
+      }
+    }
+    const int col[5] = {4 * j, 4 * j + 1, 4 * j + 2, 4 * j + 3, wordc + j};
+#pragma unroll
+    for (int m = 0; m < 5; ++m) {
+      if (m == 4 && !has_b) continue;
+      float v[4];
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        v[n] = acc[m][n];
+        if (QUANT) v[n] = truncf(fminf(fmaxf(v[n], 0.f), 255.f));
+        v[n] = round_mid<BF16>(v[n]);
+      }
+      st_shared_v4(midT + col[m] * tile_p + 4 * rg, v[0], v[1], v[2], v[3]);
+    }
+  }
+}
+"""
+_HORIZ_DOC = "// steps 3 and 4 (into the staged tile) of one tile."
+_VERT_TILE = "  vertical_pass<BF16, DERING, QUANT>(threadIdx.x, band,"
+# the intermediate's columns tile_p + 4 floats apart, in the horizontal pass and both kernels'
+# shared memory
+_MID_PAD = [
+    ("step = C * tile_p;", "step = C * (tile_p + 4);"),
+    ("const float* mrow = midT + (dj + ch) * tile_p", "const float* mrow = midT + (dj + ch) * (tile_p + 4)"),
+    ("(midT + g.mw * tile_p);", "(midT + g.mw * (tile_p + 4));"),
+    ("sizeof(float) * (size_t)g.mw * g.tile_p +", "sizeof(float) * (size_t)g.mw * (g.tile_p + 4) +"),
+    ("R.mid_off + 4 * g.mw * g.tile_p;", "R.mid_off + 4 * g.mw * (g.tile_p + 4);"),
+]
+
+
+def _vertical(name: str, text: str, extra: tuple = ()) -> list:
+    """The substitutions that put ``text``, which defines ``vertical_pass_<name>``, in the
+    place of the production vertical pass in both kernels."""
+    return [(_HORIZ_DOC, text + _HORIZ_DOC), (_VERT, _VERT.replace("pass<", f"pass_{name}<")),
+            (_VERT_TILE, _VERT_TILE.replace("pass<", f"pass_{name}<")), *extra]
+
+
+def _rows(steps: str = "g.win_v") -> list:
+    """``_ROWS_V`` in the place of the production vertical pass, its step
+    loop run ``steps`` times."""
+    return _vertical("rows", _ROWS_V.replace("s < g.win_v; ++s) {\n      float a[8];",
+                                             f"s < {steps}; ++s) {{\n      float a[8];"))
+
+
+_V4_STORE = "      st_shared_v4(mcol + m * tile_p, v[0], v[1], v[2], v[3]);"
+_SWAP = "  const bool swap = (nrg_v & 15) == 0;\n"
+_LOOP = ("  for (int t = tid; t < ((n + 31) & ~31); t += kThreads) {  // whole warps: the swap stays in one\n"
+         "    const int u = swap ? (t & ~24) | (t >> 1 & 8) | (t << 1 & 16) : t;\n")
+# a warp a block of 8 row groups by 4 column groups, a half-warp 4 by 4 (tile_p 64: 16 row groups)
+_LANES44 = ("  for (int t = tid; t < 64 * (((g.mw >> 3) + 3) >> 2); t += kThreads) {\n"
+            "    const int l = t & 31, bw8 = t >> 5;\n"
+            "    const int rg4 = (bw8 & 1) * 8 + (l & 3) + (l >> 4 << 2), jg4 = (bw8 >> 1) * 4 + (l >> 2 & 3);\n"
+            "    const int u = jg4 < (g.mw >> 3) ? jg4 * nrg_v + rg4 : n;\n")
+
 # name -> [(text in the production source, its replacement), ...]
 FUSED_PROBES = {
     "empty": [(_ENTRY_F, _RETURN + _ENTRY_F)],
@@ -119,6 +400,21 @@ FUSED_PROBES = {
     "tile": [("  if (stages > 0) {", "  if (stages < 0) {")],
     "unroll_h2": [("#pragma unroll 1\n    " + _NO_STEPS_H[0], "#pragma unroll 2\n    " + _NO_STEPS_H[0])],
     "unroll_v4": [("#pragma unroll 2\n    " + _NO_STEPS_V[0], "#pragma unroll 4\n    " + _NO_STEPS_V[0])],
+    "rows": _rows(),
+    "rows_novert": _rows("0"),
+    "rows_nohoriz": _rows() + [_NO_STEPS_H],
+    "rows_noboth": _rows("0") + [_NO_STEPS_H],
+    "f4store": [(_V4_STORE, "      *reinterpret_cast<float4*>(mcol + m * tile_p) = "
+                            "make_float4(v[0], v[1], v[2], v[3]);")],
+    "rowmap": [(_SWAP, "  const bool swap = false;  // 16 row groups of one column group a half-warp\n")],
+    "lanes44": [(_LOOP, _LANES44)],
+    "round1": [("// jnp.clip(v, min(a, b), max(a, b))", _ROUND_MID + "// jnp.clip(v, min(a, b), max(a, b))"),
+               ("      round_mid2<BF16>(v[0], v[1]);\n      round_mid2<BF16>(v[2], v[3]);\n",
+                "#pragma unroll\n      for (int n = 0; n < 4; ++n) v[n] = round_mid<BF16>(v[n]);\n")],
+    "pairs": _vertical("pairs", _PAIRS_V, tuple(_MID_PAD)),
+    "pairs_noshare": _vertical("pairs", _PAIRS_V.replace("const int e = d >= 0 && d < win ? d : win;",
+                                                         "const int e = win;"), tuple(_MID_PAD)),
+    "cols5": _vertical("cols5", _COLS5_V),
 }
 SHIFT_PROBES = {
     "empty": [(_ENTRY_S, _RETURN + _ENTRY_S)],
@@ -364,6 +660,45 @@ def probe_interleaved(lib, smi: str) -> None:
                   f"bytes {'equal' if torch.equal(got, want) else 'DIFFER'}", flush=True)
 
 
+def probe_fused(lib, x, xq, tmp: Path, smi: str) -> None:
+    """The ``fused`` group: the production kernel and every probe of
+    :data:`FUSED_PROBES` on 3 planes at 2/1 (linear, dering and bf16) and
+    3/2, and on four interleaved RGB frames at both; ms a frame, and whether each
+    probe's bytes equal production's (the zero-step probes' cannot)."""
+    fn = "lanczos_fused_resample"
+    ilv = {name: torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (4,) + shape + (3,), np.uint8)).cuda()
+        for name, shape in (("2/1", FRAME_IN), ("3/2", QUALITY_IN))}
+    runs = {"fp32": (frame_cfg(), x, rc.fused_call, 1),
+            "fp32 dering": (frame_cfg(dering=True), x, rc.fused_call, 1),
+            "3/2 fp32": (quality_cfg(), xq, rc.fused_call, 1),
+            "bf16": (frame_cfg(precision="bf16"), x, rc.fused_call, 1),
+            "RGB 2/1": (frame_cfg(), ilv["2/1"], rc.upscale_frames, 4),
+            "RGB 3/2": (quality_cfg(), ilv["3/2"], rc.upscale_frames, 4)}
+    ops = {name: rc.FusedOps(c, "cuda") for name, (c, *_) in runs.items()}  # kept: the
+    # launch arguments point into their tables
+    args = {name: launch_args(fn, lambda o=ops[name], img=img, call=call: call(img, o)
+                              if call is rc.upscale_frames else call(o, img))
+            for name, (_, img, call, _n) in runs.items()}
+    want = {}
+    for name, (a, out) in args.items():
+        t = time_ms(getattr(lib, fn), a) / runs[name][3]
+        want[name] = out.clone()
+        print(f"fused {name}: production {t:.4f} ms a frame, {ring_of(a)} [{smi}]", flush=True)
+    for probe, subs in FUSED_PROBES.items():
+        f, info = build_probe(fn, subs, tmp, f"fused_{probe}")
+        times = []
+        for name, (a, out) in args.items():
+            try:
+                t = time_ms(f, a) / runs[name][3]
+            except RuntimeError as err:  # the one-tile kernel takes no interleaved frames
+                times.append(f"{name} fails ({err})")
+                continue
+            same = "" if torch.equal(out, want[name]) else " (bytes differ)"
+            times.append(f"{name} {t:.4f}{same}")
+        print(f"fused probe {probe}: {', '.join(times)} ms ({info})", flush=True)
+
+
 GROUPS = ("fused", "shift", "sweep", "phase", "interleaved", "stream", "window")
 
 
@@ -384,20 +719,7 @@ def main(argv=None) -> int:
         np.random.default_rng(0).integers(0, 256, (3,) + QUALITY_IN, np.uint8)).cuda()
     with tempfile.TemporaryDirectory() as tmp:
         if "fused" in what:
-            fn = "lanczos_fused_resample"
-            runs = {"fp32": (frame_cfg(), x), "fp32 dering": (frame_cfg(dering=True), x),
-                    "3/2 fp32": (quality_cfg(), xq)}
-            ops = {name: rc.FusedOps(c, "cuda") for name, (c, _) in runs.items()}  # kept: the
-            # launch arguments point into their tables
-            args = {name: launch_args(fn, lambda o=ops[name], img=img: rc.fused_call(o, img))
-                    for name, (_, img) in runs.items()}
-            for name, (a, _) in args.items():
-                print(f"fused {name}: production {time_ms(getattr(lib, fn), a):.4f} ms, "
-                      f"{ring_of(a)} [{smi}]", flush=True)
-            for probe, subs in FUSED_PROBES.items():
-                f, info = build_probe(fn, subs, Path(tmp), f"fused_{probe}")
-                times = ", ".join(f"{name} {time_ms(f, a):.4f}" for name, (a, _) in args.items())
-                print(f"fused probe {probe}: {times} ms ({info})", flush=True)
+            probe_fused(lib, x, xq, Path(tmp), smi)
         if "sweep" in what:
             fn = "lanczos_fused_resample"
             for name, make, img, sweep in (("2/1", frame_cfg, x, SWEEP),

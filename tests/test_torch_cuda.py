@@ -188,6 +188,44 @@ def test_kernel_on_hand_picked_tiles_matches_plain_version(cuda, shape, scale, k
     assert torch.equal(got, want)  # each tap one fmaf in both
 
 
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("kernel", ["routed", "one tile"])
+@pytest.mark.parametrize("shape,scale,kw,tiles", [
+    ((16, 32), (4, 1), {"a": 1, "filter": "box", "align": "center"}, None),  # win_v 1
+    ((128, 512), (1, 2), {}, None),  # win_v 17, 34 column groups: over 2 rounds of warps
+    ((96, 600), (3, 2), {}, (16, 384)),  # tile_p 16: 4 row groups, lanes unswapped
+    ((24, 40), (1, 2), {"dering": True}, (8, 16)),  # tile_p 8: 2 row groups, win_v 17
+    ((64, 256), (2, 1), {}, (128, 128)),  # tile_p 128: 32 row groups, lanes swapped
+    # tile_p 40: 10 row groups, lanes unswapped
+    ((64, 256), (2, 1), {"dering": True, "intermediate_quantize": True}, (40, 128)),
+    ((48, 160), (3, 2), {"dering": True, "intermediate_quantize": True}, None),  # windows of 8
+])
+def test_vertical_tiling_edges_match_plain_version(cuda, shape, scale, kw, tiles, kernel,
+                                                   precision):
+    """The vertical pass's thread tiles (``tests/test_torch_vertical_tiling.py``)
+    at their edges, through the kernel the plan routes to and through the
+    one-tile kernel forced on the same tables."""
+    import dataclasses
+
+    kw = dict(kw)
+    cfg = lanczos_torch.ResampleConfig.from_profile(
+        "precise", shape, scale=scale, a=kw.pop("a", 3), precision=precision, **kw
+    )
+    plan = rc.plan_at(cfg, *tiles) if tiles else rc.fused_plan(cfg)
+    ops = rc.FusedOps(cfg, cuda, plan)
+    route = ops.layouts[1].route
+    if kernel == "one tile":
+        ops.layouts[1] = dataclasses.replace(ops.layouts[1], route=(0, 0))
+    x = np.random.default_rng(23).integers(0, 256, (3,) + shape, dtype=np.uint8)
+    got, pipelined = _launch(ops, torch.from_numpy(x).to(cuda))
+    assert pipelined == (kernel == "routed" and route[0] > 0)
+    want = rc.fused_resample_reference(
+        torch.from_numpy(x), plan, precision, cfg.out_shape, cfg.dering,
+        cfg.intermediate_quantize
+    )
+    assert torch.equal(got.cpu(), want)  # each tap one fmaf in both
+
+
 def test_width_first_dering_runs_the_transposed_kernel(cuda):
     cfg = lanczos_torch.ResampleConfig.from_profile(
         "precise", (40, 56), scale=(3, 2), a=3, dering=True, order="width_first"
@@ -592,6 +630,7 @@ def test_video_and_y4m_equal_the_upscaler(cuda, tmp_path):
     ((120, 96), {"intermediate_quantize": True}, (2, 2), True),
     ((48, 64), {"dering": True, "edge_mode": "drop", "normalize": False}, (1, 4), False),
     ((90, 120), {"align": "center"}, (1, 3), False),
+    ((136, 480), {"dering": True, "intermediate_quantize": True}, (1, 2), True),
 ])
 def test_sharded_fused_kernel_equals_the_whole_frame_kernel(cuda, shape, kw, mesh_shape, ring,
                                                             precision):

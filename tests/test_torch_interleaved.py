@@ -550,6 +550,30 @@ def test_interleaved_ring_matches_planar_and_plain(cuda, shape, scale, channels,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("precision,kw", [
+    ("fp32", {}), ("bf16", {}), ("fp32", {"dering": True, "intermediate_quantize": True}),
+])
+@pytest.mark.parametrize("shape,scale,tile,channels", [
+    ((48, 160), (3, 2), 16, 3),  # tile_p 16: 4 row groups, 23 column groups
+    ((48, 160), (3, 2), 16, 4),  # 20 column groups
+    ((64, 256), (2, 1), 128, 3),  # tile_p 128: 32 row groups, lanes swapped
+    ((64, 256), (2, 1), 64, 4),  # 16 row groups of 16 column groups
+])
+def test_interleaved_ring_on_other_row_tiles(cuda, shape, scale, tile, channels, precision, kw):
+    """The vertical pass's thread tiles on interleaved intermediates of
+    other widths and row tiles: identical bytes to the plain version."""
+    cfg = _cfg(shape, scale, precision=precision, **kw)
+    ops = rc.FusedOps(cfg, cuda)
+    layout = rc.upload_layout(rc.interleaved_plan(cfg, tile, channels), cfg, cuda, channels)
+    assert layout is not None  # the ring takes it
+    ops.layouts[channels] = layout
+    x = _frames(2, shape, channels, seed=tile).to(cuda)
+    got, n = _route(ops, x)
+    assert n == 1
+    assert torch.equal(got, _planar_want(x, cfg))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("case", ["ragged rows", "unaligned", "width first"])
 def test_fallbacks_match_and_count_nothing(cuda, case):
     kw = {"dering": True, "order": "width_first"} if case == "width first" else {}
